@@ -1,0 +1,51 @@
+"""Neighbor-search API of the port: build once, plan every query.
+
+    from repro_torch.api import build_index, KnnSpec, RangeSpec, HybridSpec
+
+    index = build_index(points, backend="trueknn")    # on the card
+    res = index.query(batch, KnnSpec(k=8))            # KNNResult
+    rng = index.query(batch, RangeSpec(radius=0.5))   # RangeResult (CSR)
+    plan = index.prepare(KnnSpec(k=8)); plan(batch)   # plan once, run many
+
+Same surface as ``repro.api`` for the ported backends (``brute``,
+``trueknn``) and routes (native), plus the ``device`` build knob.
+"""
+
+from ..core.result import KNNResult, RangeResult, RoundStats
+from .metrics import (
+    Metric,
+    available_metrics,
+    get_metric,
+    normalize_rows,
+    register_metric,
+)
+from .query import AllPairsSpec, HybridSpec, KnnSpec, QuerySpec, RangeSpec
+
+from . import backends  # registers the built-in backends  # noqa: E402
+from .index import NeighborIndex, build_index
+from .plan import PlanContext, QueryPlan
+from .registry import available_backends, get_backend, register_backend
+
+__all__ = [
+    "KNNResult",
+    "RangeResult",
+    "RoundStats",
+    "QuerySpec",
+    "KnnSpec",
+    "RangeSpec",
+    "HybridSpec",
+    "AllPairsSpec",
+    "Metric",
+    "register_metric",
+    "get_metric",
+    "available_metrics",
+    "normalize_rows",
+    "NeighborIndex",
+    "build_index",
+    "QueryPlan",
+    "PlanContext",
+    "available_backends",
+    "get_backend",
+    "register_backend",
+    "backends",
+]

@@ -1,0 +1,17 @@
+"""Built-in ``NeighborIndex`` backends of the port.
+
+Importing this package registers:
+
+  brute    exact dense distances (the oracle; every metric, range on the
+           ``pairwise_topk`` kernel's counter)
+  trueknn  multi-round unbounded search with grid cache + warm start
+           (paper Alg. 3; the serving default)
+
+The reference's ``fixed_radius``, ``sharded``, ``distributed`` and
+``mutable`` backends are not ported yet.
+"""
+
+from .brute import BruteIndex
+from .trueknn import TrueKNNIndex
+
+__all__ = ["BruteIndex", "TrueKNNIndex"]

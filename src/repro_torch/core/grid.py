@@ -1,0 +1,233 @@
+"""Spatial hash grid (port of ``repro.core.grid``) — the analogue of the
+paper's BVH.
+
+Every point within radius r of a query lies in the 3^d-cell one-ring
+stencil around the query's cell when the cell side is >= r.  Occupied
+cells hash (Teschner) into a table of O(#occupied) buckets of fixed
+capacity; each point's integer cell coords are kept, so an exact coord
+match filters hash collisions out of every candidate list.
+
+The table-sizing probe runs on the host in numpy and is the reference's
+code verbatim (probe cache and its hit/miss counters included), so both
+packages size every grid identically.  Binning is a counting sort in
+torch ops on the device of the points: a stable argsort, a bincount, a
+cumsum and a masked scatter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["Grid", "build_grid", "stencil_offsets", "hash_coords"]
+
+# Teschner et al. spatial-hash primes (one per axis).
+_HASH_PRIMES = (73856093, 19349663, 83492791)
+_MAX_RES_PER_AXIS = 1 << 20  # keeps packed host-side ids within int64
+_U32 = 0xFFFFFFFF
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """Static-shape spatial hash grid over a point set.
+
+    Attributes:
+      buckets:     (H, cap) int32 point indices, padded with N (sentinel).
+      point_cells: (N+1, d) int32 cell coords per point; sentinel row = -2.
+      origin:      (d,) float32 lower corner of the bounding box.
+      inv_cell:    (d,) float32 reciprocal effective cell size per axis.
+      res:         (d,) host ints — virtual cells per axis.
+      res_arr:     (d,) int32 tensor copy of ``res``.
+      table_size:  int, H (pow2).
+      cap:         int, bucket capacity (pow2).
+      n_points:    int.
+      cell_size:   (d,) np.float32 effective cell size (>= build radius).
+    The tensors live on the device of the points the grid was built from.
+    """
+
+    buckets: torch.Tensor
+    point_cells: torch.Tensor
+    origin: torch.Tensor
+    inv_cell: torch.Tensor
+    res: tuple
+    res_arr: torch.Tensor
+    table_size: int
+    cap: int
+    n_points: int
+    cell_size: np.ndarray
+
+
+def stencil_offsets(d: int) -> np.ndarray:
+    """(3^d, d) integer offsets of the one-ring stencil."""
+    grids = np.meshgrid(*([np.arange(-1, 2)] * d), indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=-1).astype(np.int32)
+
+
+def hash_coords(coords, table_size: int):
+    """Spatial hash of integer cell coords -> bucket id in [0, table_size).
+
+    Works for torch integer tensors (uint32 wraparound done in int64 with
+    ``& 0xFFFFFFFF``; returns int64) and numpy arrays (returns int64).
+    """
+    if isinstance(coords, torch.Tensor):
+        u = coords.to(torch.int64) & _U32
+        h = (u[..., 0] * _HASH_PRIMES[0]) & _U32
+        for a in range(1, coords.shape[-1]):
+            h = h ^ ((u[..., a] * _HASH_PRIMES[a]) & _U32)
+        return h & (table_size - 1)
+    u = coords.astype(np.uint32)
+    h = u[..., 0] * np.uint32(_HASH_PRIMES[0])
+    for a in range(1, coords.shape[-1]):
+        h = h ^ (u[..., a] * np.uint32(_HASH_PRIMES[a]))
+    return (h & np.uint32(table_size - 1)).astype(np.int64)
+
+
+def cell_coords_of(points, origin, inv_cell, res_arr):
+    """Per-axis integer cell coords, clamped to the virtual grid.
+
+    The clamp runs in float32 before the int32 conversion: that is the
+    reference's saturating convert followed by its clip (res <= 2^20 is
+    exact in float32), with no out-of-range float-to-int cast."""
+    c = torch.floor((points - origin) * inv_cell)
+    c = torch.minimum(torch.clamp_min(c, 0.0), (res_arr - 1).to(c.dtype))
+    return c.to(torch.int32)
+
+
+def _bin_points(points, origin, inv_cell, res_arr, *, table_size: int,
+                cap: int, n_valid: int):
+    """Counting-sort points into hash buckets.
+
+    Rows >= n_valid are padding: never binned, cell coords -2 (match
+    nothing).  Returns (buckets (H, cap), point_cells (N+1, d))."""
+    n = points.shape[0]
+    dev = points.device
+    valid = torch.arange(n, device=dev) < n_valid
+    coords = cell_coords_of(
+        torch.where(torch.isfinite(points), points, 0.0), origin, inv_cell,
+        res_arr,
+    )
+    h = torch.where(valid, hash_coords(coords, table_size), table_size - 1)
+    order = torch.argsort(h, stable=True)
+    sorted_h = h[order]
+    counts = torch.bincount(
+        torch.where(valid, h, table_size), minlength=table_size + 1
+    )[:table_size]
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(n, device=dev) - starts[sorted_h]  # rank in bucket
+    keep = (slot < cap) & (order < n_valid)
+    buckets = torch.full((table_size, cap), n, dtype=torch.int32, device=dev)
+    buckets[sorted_h[keep], slot[keep]] = order[keep].to(torch.int32)
+    coords = torch.where(valid[:, None], coords, -2)
+    sentinel = torch.full((1, points.shape[1]), -2, dtype=torch.int32,
+                          device=dev)
+    point_cells = torch.cat([coords, sentinel], 0)
+    return buckets, point_cells
+
+
+def build_grid(
+    points,
+    radius: float,
+    *,
+    device_points=None,
+    max_bucket_elems: int = 1 << 25,
+    load_factor: float = 0.5,
+    force_table_size: int = 0,
+    force_cap: int = 0,
+    n_valid: int = 0,
+    probe_cache: dict = None,
+) -> Grid:
+    """Build a hash grid whose effective cell size is >= ``radius`` per axis.
+
+    ``points`` is the host copy ((N, d) array) the sizing probe reads;
+    ``device_points`` the same cloud as a tensor, binned on its device (the
+    CPU when None).  ``n_valid``: rows beyond it are padding, excluded from
+    the index.  ``probe_cache``: optional per-cloud memo of the sizing
+    probe, keyed by (n_valid, initial res); ``"_hits"`` / ``"_misses"``
+    count lookups.  Ignored under ``force_table_size`` / ``force_cap``.
+    """
+    pts_all = np.asarray(points, dtype=np.float32)
+    n, d = pts_all.shape
+    n_valid = n_valid or n
+    pts = pts_all[:n_valid]
+    lo = pts.min(axis=0)
+    hi = pts.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-12)
+
+    radius = float(max(radius, 1e-12))
+    res = np.clip(
+        np.floor(extent / radius).astype(np.int64), 1, _MAX_RES_PER_AXIS
+    )
+
+    use_cache = (
+        probe_cache is not None and not force_table_size and not force_cap
+    )
+    probe_key = (n_valid, tuple(int(x) for x in res)) if use_cache else None
+    cached = probe_cache.get(probe_key) if use_cache else None
+    if cached is not None:
+        probe_cache["_hits"] = probe_cache.get("_hits", 0) + 1
+        table_size, cap, res_t = cached
+        res = np.asarray(res_t, np.int64)
+        cell = (extent / res).astype(np.float32)
+    else:
+        while True:
+            cell = (extent / res).astype(np.float32)
+            coords = np.clip(
+                np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
+            )
+            # pack to a unique id per occupied cell (host side, exact)
+            packed = coords[:, 0]
+            for a in range(1, d):
+                packed = packed * res[a] + coords[:, a]
+            n_occ = len(np.unique(packed))
+            table_size = force_table_size or _next_pow2(
+                max(int(n_occ / load_factor), 16)
+            )
+            h = hash_coords(coords.astype(np.int64), table_size)
+            occ = np.bincount(h, minlength=table_size)
+            needed_cap = _next_pow2(max(int(occ.max()), 1))
+            if force_cap:
+                # caller pre-computed a shared shape; it must be adequate —
+                # exactness over silent truncation.
+                assert needed_cap <= force_cap, (needed_cap, force_cap)
+                cap = force_cap
+                break
+            cap = needed_cap
+            if table_size * cap <= max_bucket_elems or int(res.max()) == 1:
+                break
+            res = np.maximum(res // 2, 1)  # coarsen (cells grow — always safe)
+        if use_cache:
+            probe_cache["_misses"] = probe_cache.get("_misses", 0) + 1
+            probe_cache[probe_key] = (
+                table_size, cap, tuple(int(r) for r in res)
+            )
+
+    res_t = tuple(int(r) for r in res)
+    dpts = (
+        torch.from_numpy(pts_all) if device_points is None else device_points
+    )
+    dev = dpts.device
+    origin = torch.from_numpy(lo).to(dev)
+    inv_cell = torch.from_numpy(np.asarray(1.0 / cell, np.float32)).to(dev)
+    res_arr = torch.tensor(res_t, dtype=torch.int32, device=dev)
+    buckets, point_cells = _bin_points(
+        dpts, origin, inv_cell, res_arr,
+        table_size=table_size, cap=cap, n_valid=n_valid,
+    )
+    return Grid(
+        buckets=buckets,
+        point_cells=point_cells,
+        origin=origin,
+        inv_cell=inv_cell,
+        res=res_t,
+        res_arr=res_arr,
+        table_size=table_size,
+        cap=cap,
+        n_points=n,
+        cell_size=cell,
+    )
