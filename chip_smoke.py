@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, in parallel), holds each against its plain PyTorch version on the
-card, then drives the port's two entry points at full width through the
-user API and checks what comes out:
+Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
+``torch.utils.cpp_extension.load`` call), holds each against its plain
+PyTorch version on the card, then drives the port's two entry points at
+full width through the user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -15,8 +15,9 @@ user API and checks what comes out:
    take the diff form (d <= 8), rtol 1e-6 for the d > 8 identity form;
    index sets compared by distance where values are not bitwise;
 3. grid-round kernel vs plain version on the first three scheduled grids
-   of the full cloud, 16384 seeded queries: d2, idx, found, n_tests
-   bitwise;
+   of the full cloud, 16384 seeded queries, and on the collapsed grid whose
+   stencil walks the most slots and the coarsest (largest cap), 256 of
+   them: d2, idx, found, n_tests bitwise;
 4. main path: ``build_index(kitti 2^20, backend="trueknn")`` and two
    self-query ``KnnSpec(8)`` batches (sampled, then warm), with 4096 rows
    checked against the brute backend;
@@ -55,6 +56,7 @@ N_SUB = 1 << 18  # subset of the main cloud for the other metrics
 N_WIDE = 1 << 16  # d = 16 cloud for the matmul-identity form
 ROWS = 4096
 GRID_ROWS = 16384
+DEGEN_ROWS = 256
 SEED = 0
 
 
@@ -221,16 +223,24 @@ def phase_grid(dev, kitti_np, rng):
     qid = rows.to(torch.int32)
     k = 8
     worst = 0.0
-    for t in range(3):
+    # the first three grids on every row of the subset; then, on
+    # DEGEN_ROWS of them (the plain version gathers 3^d * cap slots a row),
+    # the grid whose stencil walks the most slots (the collapsed grid where
+    # most of the main path's tests go) and the coarsest (largest cap)
+    slots = [math.prod(min(3, r) for r in g.res) * g.cap for g in sched.grids]
+    heaviest = max(range(len(slots)), key=slots.__getitem__)
+    coarsest = max(range(len(slots)), key=lambda t: sched.grids[t].cap)
+    for t, m in ((0, GRID_ROWS), (1, GRID_ROWS), (2, GRID_ROWS),
+                 (heaviest, DEGEN_ROWS), (coarsest, DEGEN_ROWS)):
         grid = sched.grids[t]
         r2 = float(np.float32(sched.radii[t]) ** 2)
         res = []
         for fn in (grid_round, grid_round_plain):
-            out = (torch.empty((GRID_ROWS, k), device=dev),
-                   torch.empty((GRID_ROWS, k), dtype=torch.int32, device=dev),
-                   torch.empty((GRID_ROWS,), dtype=torch.int32, device=dev))
+            out = (torch.empty((m, k), device=dev),
+                   torch.empty((m, k), dtype=torch.int32, device=dev),
+                   torch.empty((m,), dtype=torch.int32, device=dev))
             tests = torch.zeros(1, dtype=torch.int64, device=dev)
-            fn(pts, grid, q, qid, r2, k, out=out, tests=tests)
+            fn(pts, grid, q[:m], qid[:m], r2, k, out=out, tests=tests)
             res.append((out, tests))
         torch.cuda.synchronize()
         (a, ta), (b, tb) = res
@@ -240,8 +250,8 @@ def phase_grid(dev, kitti_np, rng):
         fin = torch.isfinite(b[0])
         if fin.any():
             worst = max(worst, float((a[0][fin] - b[0][fin]).abs().max()))
-        log(f"  grid_round t={t} r={sched.radii[t]:.6g} res={grid.res} "
-            f"cap={grid.cap} H={grid.table_size}: bitwise ok, "
+        log(f"  grid_round t={t} rows={m} r={sched.radii[t]:.6g} "
+            f"res={grid.res} cap={grid.cap} H={grid.table_size}: bitwise ok, "
             f"n_tests={ta.item()}, found max {int(a[2].max())}")
     return len(sched.radii), worst
 
@@ -451,8 +461,10 @@ def phase_times(dev, index, b1, q, qid, thr):
     for x, y, name in zip(out, out_p, ("d2", "idx", "found")):
         check(torch.equal(x, y), f"grid round at full width: {name} differs")
     check(n_tests == int(tests_p.item()), "full-width n_tests differ")
+    # a self-query: the queries are the points, so the cloud is read once
+    # (points, buckets, cell coords, ids in; d2 + idx, found out)
     g_bytes = (n * d * 4 + grid.table_size * grid.cap * 4 + (n + 1) * d * 4
-               + n * d * 4 + n * 4 + n * kk * 8 + n * 4)
+               + n * 4 + n * kk * 8 + n * 4)
     g_bound = bound(g_bytes, n_tests * 3 * d)
     log(f"  grid_round Q={n} r={b1.start_radius:.6g} cap={grid.cap} "
         f"H={grid.table_size} n_tests={n_tests}: bitwise equal to the plain "
@@ -484,8 +496,9 @@ def main() -> int:
         f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}; {smi}")
     t0 = time.perf_counter()
-    paths = build.build_all()
-    log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f}s")
+    ext = build.extension()
+    log(f"  built {ext.__name__} ({', '.join(build.SOURCES)}) in "
+        f"{time.perf_counter() - t0:.2f}s")
 
     rng = np.random.default_rng(SEED)
     kitti_np = make_dataset("kitti", N_MAIN)

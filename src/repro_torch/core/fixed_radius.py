@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from ..kernels.build import check, count_launch, library
+from ..kernels.build import count_launch, extension
 from ..kernels.ops import as_f32
 from .grid import Grid, cell_coords_of, hash_coords, stencil_offsets
 
@@ -183,16 +183,11 @@ def _grid_round_cuda(points, grid: Grid, q, qid, r2: float, k: int, *, out,
         raise ValueError(f"grid_round: 1 <= d <= 3 (one hash prime per axis), got {d}")
     if nq == 0:
         return
-    ptr = (lambda x: None if x is None else x.data_ptr())
-    fn = library("grid_round").grid_round_launch
-    err = fn(
-        ptr(points), ptr(grid.buckets), ptr(grid.point_cells),
-        ptr(grid.origin), ptr(grid.inv_cell), ptr(grid.res_arr), ptr(q),
-        ptr(qid), nq, n, d, grid.table_size, grid.cap, int(k), float(r2),
-        ptr(od), ptr(oi), ptr(of), ptr(unres), ptr(res_round), int(t),
-        ptr(tests), ptr(executed), torch.cuda.current_stream(dev).cuda_stream,
+    extension().grid_round(
+        points, grid.buckets, grid.point_cells, grid.origin, grid.inv_cell,
+        grid.res_arr, q, qid, int(k), float(r2), od, oi, of, unres,
+        res_round, int(t), tests, executed,
     )
-    check("grid_round", err)
     count_launch("grid_round")
 
 

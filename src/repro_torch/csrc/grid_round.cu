@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.h"
 #include "topk_list.cuh"
 
 namespace {
@@ -59,7 +60,7 @@ grid_round_kernel(const float* __restrict__ pts, const int* __restrict__ buckets
                   int* __restrict__ executed) {
   const int row = blockIdx.x * kThreads + threadIdx.x;
   const bool active = row < nq && (unres == nullptr || unres[row] != 0);
-  unsigned my_tests = 0;
+  unsigned long long my_tests = 0;
 
   if (active) {
     const float* qr = q + (size_t)row * d;
@@ -152,10 +153,13 @@ grid_round_kernel(const float* __restrict__ pts, const int* __restrict__ buckets
     }
   }
 
-  // every thread of the block reaches this point (no early return above)
-  const unsigned warp_tests = __reduce_add_sync(0xffffffffu, my_tests);
-  if ((threadIdx.x & 31) == 0 && warp_tests != 0)
-    atomicAdd(tests, (unsigned long long)warp_tests);
+  // every thread of the block reaches this point (no early return above);
+  // the warp sum stays 64-bit: 32 rows of a one-cell grid test 32 * N
+  // candidates, past 2^32 once N > 2^27
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    my_tests += __shfl_down_sync(0xffffffffu, my_tests, off);
+  if ((threadIdx.x & 31) == 0 && my_tests != 0) atomicAdd(tests, my_tests);
 }
 
 template <class List>
@@ -176,13 +180,7 @@ cudaError_t launch(cudaStream_t stream, const float* pts, const int* buckets,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Device pointers to contiguous
-// tensors: pts (n, d) f32 (only matched rows are read), buckets
-// (table_size, cap) i32 padded with n, point_cells (n + 1, d) i32, origin /
-// inv_cell (d,) f32, res (d,) i32, q (nq, d) f32, qid (nq,) i32, out_d2 /
-// out_i (nq, k), found (nq,) i32, tests one u64 that is added to.  unres
-// (nq,) u8, res_round (nq,) i32 and executed (one i32) are null outside the
-// fused loop.  1 <= d <= 3.  Returns the launch's cudaError_t.
+// The C entry point; its contract is in launch.h.
 extern "C" int grid_round_launch(const float* pts, const int* buckets,
                                  const int* point_cells, const float* origin,
                                  const float* inv_cell, const int* res,

@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.h"
 #include "topk_list.cuh"
 
 namespace {
@@ -190,12 +191,7 @@ cudaError_t launch_list(int metric, bool lowd, dim3 grid, int smem,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  All pointers are device
-// pointers to contiguous tensors: q (nq, d) f32, qid (nq,) i32, p (n, d) f32,
-// row_mask (nq,) u8 or null (rows with 0 are skipped and their outputs left
-// untouched), out_d (nq, k) f32, out_i (nq, k) i32, out_c (nq,) i32.
-// metric: 0 = l2 (squared), 1 = l1, 2 = linf.  Returns the launch's
-// cudaError_t.
+// The C entry point; its contract is in launch.h.
 extern "C" int pairwise_topk_launch(const float* q, const int* qid,
                                     const float* p,
                                     const unsigned char* row_mask, int nq,

@@ -1,15 +1,14 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, loaded with ``ctypes``.  No
-PyTorch header is compiled, so a build takes seconds, not minutes.  The
-libraries go to ``build/torch_ext/`` at the root of the checkout, named by
-a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+The kernels (``csrc/pairwise_topk.cu``, ``csrc/grid_round.cu``) and their
+binding (``csrc/binding.cpp``, the one source that includes PyTorch's
+headers) are built by one ``torch.utils.cpp_extension.load`` call for
+``sm_90a`` into ``build/torch_ext/`` at the root of the checkout.  ``load``
+compiles the sources in parallel with ninja, and loads an unchanged build
+as it is.
 
-Nothing is built when this module is imported: ``library(name)`` builds
-on first use, ``build_all()`` builds every kernel at once (one ``nvcc``
-per source, all started together).
+Nothing is built when this module is imported: ``extension()`` builds on
+first use.
 
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show which
@@ -18,55 +17,25 @@ kernels its path went through (``reset_launches`` / ``launch_counts``).
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 __all__ = [
-    "KERNELS",
     "LAUNCHES",
     "BUILD_DIR",
-    "build_all",
-    "library",
+    "extension",
     "count_launch",
     "launch_counts",
     "reset_launches",
-    "check",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-NVCC_FLAGS = (
-    "-O3",
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
+SOURCES = ("binding.cpp", "pairwise_topk.cu", "grid_round.cu")
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-#: kernel name -> (C entry point, its argtypes)
-KERNELS = {
-    "pairwise_topk": (
-        "pairwise_topk_launch",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
-    ),
-    "grid_round": (
-        "grid_round_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-         _P, _P, _P, _P, _P, _I, _P, _P, _P],
-    ),
-}
-
-LAUNCHES = {name: 0 for name in KERNELS}
-_LIBS: dict = {}
+LAUNCHES = {"pairwise_topk": 0, "grid_round": 0}
+_EXT = None
 _LOCK = threading.Lock()
 
 
@@ -83,71 +52,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
-        h.update(hdr.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build_all(names=None) -> dict:
-    """Compile every missing kernel library, one ``nvcc`` per source, all
-    at once; returns {name: path}.  Raises if any build fails."""
-    names = list(KERNELS if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    jobs = []
-    for name, out in paths.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((name, tmp, out, proc))
-    errors = []
-    for name, tmp, out, proc in jobs:  # wait for every one, then report
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return paths
-
-
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use)."""
+def extension():
+    """The loaded extension module (built on first use); raises if the
+    build fails."""
+    global _EXT
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path = build_all([name])[name]
-            lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = KERNELS[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
-        return lib
+        if _EXT is None:
+            from torch.utils.cpp_extension import load
 
-
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error (a refused launch never
-    runs, and a later synchronize would not report it)."""
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError_t {err}")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)  # load() does not
+            _EXT = load(
+                name="repro_torch_kernels",
+                sources=[str(CSRC / s) for s in SOURCES],
+                build_directory=str(BUILD_DIR),
+                extra_cflags=["-O3"],
+                extra_cuda_cflags=list(NVCC_FLAGS),
+                verbose=False,
+            )
+        return _EXT

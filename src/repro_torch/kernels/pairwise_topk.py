@@ -12,15 +12,11 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, count_launch, library
+from .build import count_launch, extension
 
 __all__ = ["pairwise_topk_cuda", "METRIC_IDS"]
 
 METRIC_IDS = {"l2": 0, "l1": 1, "linf": 2}
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def pairwise_topk_cuda(
@@ -79,12 +75,7 @@ def pairwise_topk_cuda(
         raise ValueError(f"pairwise_topk: needs n, d, k >= 1 (got {n}, {d}, {k})")
     if nq == 0:
         return out
-    fn = library("pairwise_topk").pairwise_topk_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        _ptr(q), _ptr(qid), _ptr(p), _ptr(row_mask), nq, n, d, k, float(thr),
-        METRIC_IDS[metric], _ptr(od), _ptr(oi), _ptr(oc), stream,
-    )
-    check("pairwise_topk", err)
+    extension().pairwise_topk(q, qid, p, row_mask, k, float(thr),
+                              METRIC_IDS[metric], od, oi, oc)
     count_launch("pairwise_topk")
     return out
