@@ -11,22 +11,40 @@ full width through the user API and checks what comes out:
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
    cosine, self ids, finite radii, k in {1, 5, 8, 32, 64, 300}, on
-   main-path shapes (N = 2^20).  Counts exact; values bitwise where both
-   take the diff form (d <= 8), rtol 1e-6 for the d > 8 identity form;
-   index sets compared by distance where values are not bitwise;
+   main-path shapes (N = 2^20), the split-N path (S > 1 ranges and the
+   merge) checked taken where it must be: the sampler's Q = 100, k = 300,
+   and exact duplicate points on both sides of every range boundary of the
+   kernel's own split; then a ``row_mask`` that is all zero and one that
+   keeps every third row (the other rows must stay untouched).  Counts
+   exact; values bitwise where both take the diff form (d <= 8), rtol 1e-6
+   for the d > 8 identity form; index sets compared by distance where
+   values are not bitwise;
 3. grid-round kernel vs plain version on the first three scheduled grids
-   of the full cloud, 16384 seeded queries, and on the collapsed grid whose
-   stencil walks the most slots and the coarsest (largest cap), 256 of
-   them: d2, idx, found, n_tests bitwise;
+   of the full cloud (the fine, one-thread-a-query design), 16384 seeded
+   queries, and on the collapsed grid whose stencil walks the most slots
+   and the coarsest (largest cap), 2048 of them, eight blocks of the
+   coarse, shared-memory design: d2, idx, found, n_tests bitwise; then
+   fused mode on the heaviest grid with a partly cleared ``unres`` mask,
+   once with the rows as drawn and once out of cell order: also
+   ``unres``, ``res_round`` and ``executed`` bitwise;
 4. main path: ``build_index(kitti 2^20, backend="trueknn")`` and two
    self-query ``KnnSpec(8)`` batches (sampled, then warm), with 4096 rows
    checked against the brute backend;
 5. brute ``RangeSpec`` at full width on 4096 rows, CSR vs the plain
    version's;
-6. the heavy-tailed 2-D cloud (porto 2^18): fused self-query, and a
-   4096-row query whose fused and host-loop answers and round stats must
-   be equal;
-7. kernel times against their bounds, the kernels line, the device line.
+6. the heavy-tailed 2-D cloud (porto 2^18): fused self-query with its
+   rounds' grids, and a 4096-row query whose fused and host-loop answers
+   and round stats must be equal;
+7. kernel times against their bounds at every timed shape: ``pairwise_topk``
+   at Q = 4096, k = 32 and at the sampler's Q = 100, k = 5 (each also as
+   first pass and merge apart); ``grid_round`` on round 0 of batch 1 and
+   one non-fused launch on the heaviest scheduled grid at full width,
+   whose n_tests must be exactly N * N when the grid has res <= 2 per axis;
+8. ``grid_round``'s two designs timed on every scheduled grid of kitti,
+   porto, road and uniform (the fused loop's rounds, and every row on
+   the grids between fine and collapsed), held bitwise equal to each
+   other, against the design the wrapper picks; then the kernels line and
+   the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
 are zeroed just before each entry point (phases 4 and 5) and read just
@@ -56,8 +74,9 @@ N_SUB = 1 << 18  # subset of the main cloud for the other metrics
 N_WIDE = 1 << 16  # d = 16 cloud for the matmul-identity form
 ROWS = 4096
 GRID_ROWS = 16384
-DEGEN_ROWS = 256
+DEGEN_ROWS = 2048  # 8 blocks of the coarse design at k = 8
 SEED = 0
+FINE_TEST_BUDGET = 1 << 36  # most tests phase 8 gives the fine design
 
 
 def check(cond, msg):
@@ -92,6 +111,12 @@ def median_ms(fn, reps, sync, warmup=True):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def shape_row(shape, ms, plain_ms, b, **extra):
+    """One timed shape of a kernel for the kernels line."""
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], **extra}
 
 
 def bound(bytes_moved, flops):
@@ -149,6 +174,7 @@ def phase_pairwise(dev, kitti, porto, rng):
     import torch
 
     from repro_torch.kernels.ops import l2_normalize, topk_engine
+    from repro_torch.kernels.pairwise_topk import split_plan
     from repro_torch.kernels.ref import pairwise_topk_ref
 
     n = kitti.shape[0]
@@ -184,6 +210,20 @@ def phase_pairwise(dev, kitti, porto, rng):
     sub_n = l2_normalize(sub)
     cases.append(("cosine d3 k64", sub_n[srow + 7], none(512, sub), sub_n,
                   "l2", 64, 2.0 * 0.001))
+    # exact duplicates of point 5 on both sides of every range boundary of
+    # the kernel's own split: equal distances across two ranges, which the
+    # merge must give to the lower index
+    _, span = split_plan(512, N_SUB, 3, 8, "l2", dev)
+    tie = sub.clone()
+    for b in range(span, N_SUB, span):
+        tie[b - 1] = tie[5]
+        tie[b] = tie[5]
+    cases += [
+        ("split ties l2 d3 k8 self", tie[srow], ids(srow), tie, "l2", 8,
+         0.05),
+        ("split ties l2 d3 k300", tie[srow], none(512, tie), tie, "l2", 300,
+         0.05),
+    ]
     worst = 0.0
     for tag, q, qid, p, metric, k, thr in cases:
         q = q.contiguous()
@@ -194,9 +234,39 @@ def phase_pairwise(dev, kitti, porto, rng):
         bitwise = p.shape[1] <= 8 or metric != "l2"
         err = compare_topk(tag, got, want, q, p, metric, bitwise)
         worst = max(worst, err)
-        log(f"  pairwise_topk {tag}: Q={q.shape[0]} N={p.shape[0]} "
+        s_used = split_plan(q.shape[0], p.shape[0], p.shape[1], k, metric,
+                            dev)[0]
+        if tag in ("sampler l2 d3 k5", "range l2 d3 k300") or "ties" in tag:
+            check(s_used > 1, f"{tag}: the split path was not taken")
+        log(f"  pairwise_topk {tag}: Q={q.shape[0]} N={p.shape[0]} S={s_used} "
             f"{'bitwise' if bitwise else 'rtol 1e-6'} ok, max|err|={err:g}, "
             f"counts max {int(got[2].max())}")
+
+    # row_mask: masked rows equal the plain version's, the others untouched
+    q, qid = kitti[rows].contiguous(), none(ROWS, kitti)
+    for tag, mask in (
+        ("all zero", torch.zeros(ROWS, dtype=torch.uint8, device=dev)),
+        ("every third row",
+         (torch.arange(ROWS, device=dev) % 3 == 0).to(torch.uint8)),
+    ):
+        res = []
+        for fn in ("kernel", "plain"):
+            out = (torch.full((ROWS, 32), -1.0, device=dev),
+                   torch.full((ROWS, 32), -1, dtype=torch.int32, device=dev),
+                   torch.full((ROWS,), -1, dtype=torch.int32, device=dev))
+            if fn == "kernel":
+                topk_engine(q, qid, kitti, 0.01, k=32, row_mask=mask, out=out)
+            else:
+                pairwise_topk_ref(q, kitti, 32, radius2=0.01, query_ids=qid,
+                                  row_mask=mask, out=out)
+            res.append(out)
+        torch.cuda.synchronize()
+        for a, b, name in zip(*res, ("d", "idx", "counts")):
+            check(torch.equal(a, b), f"row_mask {tag}: {name} differs")
+        untouched = bool((res[0][2][mask == 0] == -1).all())
+        check(untouched, f"row_mask {tag}: an unmasked row was written")
+        log(f"  pairwise_topk row_mask {tag}: Q={ROWS} k=32 bitwise ok, "
+            f"{int((mask == 0).sum())} rows untouched")
     return worst
 
 
@@ -207,7 +277,11 @@ def phase_grid(dev, kitti_np, rng):
     import torch
 
     from repro_torch import build_index
-    from repro_torch.core.fixed_radius import grid_round, grid_round_plain
+    from repro_torch.core.fixed_radius import (
+        cell_keys,
+        grid_round,
+        grid_round_plain,
+    )
     from repro_torch.core.fused_loop import build_schedule
 
     index = build_index(kitti_np, backend="trueknn", device=dev)
@@ -224,7 +298,8 @@ def phase_grid(dev, kitti_np, rng):
     k = 8
     worst = 0.0
     # the first three grids on every row of the subset; then, on
-    # DEGEN_ROWS of them (the plain version gathers 3^d * cap slots a row),
+    # DEGEN_ROWS of them (the plain version gathers 3^d * cap slots a row;
+    # enough rows for several blocks of the coarse design),
     # the grid whose stencil walks the most slots (the collapsed grid where
     # most of the main path's tests go) and the coarsest (largest cap)
     slots = [math.prod(min(3, r) for r in g.res) * g.cap for g in sched.grids]
@@ -253,7 +328,42 @@ def phase_grid(dev, kitti_np, rng):
         log(f"  grid_round t={t} rows={m} r={sched.radii[t]:.6g} "
             f"res={grid.res} cap={grid.cap} H={grid.table_size}: bitwise ok, "
             f"n_tests={ta.item()}, found max {int(a[2].max())}")
-    return len(sched.radii), worst
+
+    # fused mode on the heaviest grid: a partly cleared unres mask, once with
+    # the rows as drawn and once with them deliberately out of cell order
+    # (alternating between the first and the last cells of the sort)
+    grid = sched.grids[heaviest]
+    r2 = float(np.float32(sched.radii[heaviest]) ** 2)
+    m = DEGEN_ROWS
+    order = torch.argsort(cell_keys(q[:m], grid), stable=True)
+    mixed = torch.stack([order[: m // 2], order[m // 2:].flip(0)], 1).flatten()
+    names = ("d2", "idx", "found", "n_tests", "unres", "res_round", "executed")
+    for tag, sel in (("unres partly cleared", torch.arange(m, device=dev)),
+                     ("rows out of cell order", mixed)):
+        qq, qi = q[sel].contiguous(), qid[sel].contiguous()
+        unres0 = (torch.arange(m, device=dev) % 3 != 0).to(torch.uint8)
+        res = []
+        for fn in (grid_round, grid_round_plain):
+            out = (torch.full((m, k), -1.0, device=dev),
+                   torch.full((m, k), -1, dtype=torch.int32, device=dev),
+                   torch.full((m,), -1, dtype=torch.int32, device=dev))
+            state = (torch.zeros(1, dtype=torch.int64, device=dev),
+                     unres0.clone(),
+                     torch.full((m,), -1, dtype=torch.int32, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+            fn(pts, grid, qq, qi, r2, k, out=out, tests=state[0],
+               unres=state[1], res_round=state[2], t=heaviest,
+               executed=state[3])
+            res.append(out + state)
+        torch.cuda.synchronize()
+        for x, y, name in zip(*res, names):
+            check(torch.equal(x, y), f"fused heaviest {tag}: {name} differs")
+        log(f"  grid_round fused t={heaviest} rows={m} ({tag}): d2, idx, "
+            f"found, n_tests, unres, res_round, executed bitwise ok, "
+            f"n_tests={res[0][3].item()}, resolved "
+            f"{int((res[0][5] == heaviest).sum())}")
+    heavy = (sched.grids[heaviest], sched.radii[heaviest], heaviest)
+    return (sched, pts), worst, heavy
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -390,7 +500,12 @@ def phase_porto(dev, rng):
     res = index.query(None, KnnSpec(8))
     torch.cuda.synchronize()
     log(f"  porto self-query: rounds={res.n_rounds} n_tests={res.n_tests} "
+        f"grid_build_s={res.timings['grid_build_seconds']:.3f} "
         f"wall_s={time.perf_counter() - t0:.4f}")
+    for r in res.rounds:
+        log(f"    round {r.round_idx}: r={r.radius:.6g} res={r.grid_res} "
+            f"cap={r.grid_cap} rows={r.n_queries} resolved={r.n_resolved} "
+            f"n_tests={r.n_tests}")
     check(np.isfinite(res.dists).all() and res.dists.shape == (N_PORTO, 8),
           "porto answers")
     rows = np.sort(rng.choice(N_PORTO, ROWS, replace=False))
@@ -415,16 +530,35 @@ def phase_porto(dev, rng):
 # -- phase 7: times against bounds -------------------------------------------
 
 
-def phase_times(dev, index, b1, q, qid, thr):
+def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
     import torch
 
     from repro_torch.core.fixed_radius import grid_round, grid_round_plain
+    from repro_torch.kernels import build
     from repro_torch.kernels.ops import topk_engine
+    from repro_torch.kernels.pairwise_topk import split_plan
     from repro_torch.kernels.ref import pairwise_topk_ref
 
     sync = torch.cuda.synchronize
     p = index._pts_t
     n, d = p.shape
+    ext = build.extension()
+
+    def split_ms(qq, qi, k, t):
+        """The two passes of one pairwise_topk call timed apart: (S, first
+        pass ms, merge ms)."""
+        nq = qq.shape[0]
+        splits, span = split_plan(nq, n, d, k, "l2", dev)
+        part = (torch.empty((splits, nq, k), device=dev),
+                torch.empty((splits, nq, k), dtype=torch.int32, device=dev),
+                torch.empty((splits, nq), dtype=torch.int32, device=dev))
+        outs = tuple(x[0] for x in part)
+        t1 = median_ms(lambda: ext.pairwise_topk(
+            qq, qi, p, None, k, splits, span, t, 0, *part), 3, sync)
+        t2 = (median_ms(lambda: ext.pairwise_topk_merge(
+            *part, None, n, *outs), 3, sync) if splits > 1 else 0.0)
+        return splits, t1, t2
+
     k = 32
     t_k = median_ms(lambda: topk_engine(q, qid, p, thr, k=k), 3, sync)
     t_p = median_ms(lambda: pairwise_topk_ref(q, p, k, radius2=thr,
@@ -434,8 +568,28 @@ def phase_times(dev, index, b1, q, qid, thr):
     pw_bytes = qn * d * 4 + n * d * 4 + qn * 4 + qn * k * 8 + qn * 4
     pw_flops = qn * n * 3 * d
     pw_bound = bound(pw_bytes, pw_flops)
-    log(f"  pairwise_topk Q={qn} N={n} k={k}: kernel {t_k:.3f} ms, plain "
-        f"{t_p:.3f} ms, bound {pw_bound[0]:.4f} ms ({pw_bound[1]})")
+    pw_split = split_ms(q, qid, k, thr)
+    log(f"  pairwise_topk Q={qn} N={n} k={k}: kernel {t_k:.3f} ms "
+        f"(S={pw_split[0]}: first pass {pw_split[1]:.3f} ms, merge "
+        f"{pw_split[2]:.3f} ms), plain {t_p:.3f} ms, bound "
+        f"{pw_bound[0]:.4f} ms ({pw_bound[1]})")
+
+    # the Alg. 2 sampler's call: 100 member rows, k = 5, no radius
+    samp = torch.as_tensor(rng.choice(n, 100, replace=False), device=dev)
+    qs = p[samp].contiguous()
+    qid_s = torch.full((100,), n, dtype=torch.int32, device=dev)
+    ks = 5
+    s_k = median_ms(lambda: topk_engine(qs, qid_s, p, math.inf, k=ks), 3,
+                    sync)
+    s_p = median_ms(lambda: pairwise_topk_ref(qs, p, ks, query_ids=qid_s), 3,
+                    sync)
+    s_bound = bound(100 * d * 4 + n * d * 4 + 100 * 4 + 100 * ks * 8
+                    + 100 * 4, 100 * n * 3 * d)
+    s_split = split_ms(qs, qid_s, ks, math.inf)
+    log(f"  pairwise_topk Q=100 N={n} k={ks} (sampler): kernel {s_k:.3f} ms "
+        f"(S={s_split[0]}: first pass {s_split[1]:.3f} ms, merge "
+        f"{s_split[2]:.3f} ms), plain {s_p:.3f} ms, bound {s_bound[0]:.4f} ms"
+        f" ({s_bound[1]})")
 
     # round 0 of batch 1: every row of the cloud runs (the plain version
     # of a later, coarser round would take hours at this width)
@@ -450,9 +604,9 @@ def phase_times(dev, index, b1, q, qid, thr):
     tests = torch.zeros(1, dtype=torch.int64, device=dev)
     tests_p = torch.zeros(1, dtype=torch.int64, device=dev)
 
-    def run(fn, o, t):
+    def run(fn, o, t, g=grid, rr=r2):
         t.zero_()
-        fn(p, grid, p, qid_all, r2, kk, out=o, tests=t)
+        fn(p, g, p, qid_all, rr, kk, out=o, tests=t)
 
     g_k = median_ms(lambda: run(grid_round, out, tests), 3, sync)
     g_p = median_ms(lambda: run(grid_round_plain, out_p, tests_p), 1, sync,
@@ -470,7 +624,153 @@ def phase_times(dev, index, b1, q, qid, thr):
         f"H={grid.table_size} n_tests={n_tests}: bitwise equal to the plain "
         f"version; kernel {g_k:.3f} ms, plain {g_p:.3f} ms, bound "
         f"{g_bound[0]:.4f} ms ({g_bound[1]})")
-    return (t_k, t_p, pw_bound), (g_k, g_p, g_bound)
+
+    # the heaviest scheduled grid at full width, one non-fused launch (the
+    # plain version would take hours here: n_tests is held to its exact
+    # value instead, N * N on a grid of res <= 2 per axis)
+    hgrid, hrad, ht = heavy
+    hr2 = float(np.float32(hrad) ** 2)
+    heavy_run = lambda: run(grid_round, out, tests, hgrid, hr2)  # noqa: E731
+    first = median_ms(heavy_run, 1, sync, warmup=False)
+    h_k = first if first > 2000.0 else median_ms(heavy_run, 3, sync,
+                                                 warmup=False)
+    h_tests = int(tests.item())
+    if max(hgrid.res) <= 2:
+        check(h_tests == n * n, f"heaviest round n_tests {h_tests} != N*N")
+    h_bytes = (n * d * 4 + hgrid.table_size * hgrid.cap * 4
+               + (n + 1) * d * 4 + n * 4 + n * kk * 8 + n * 4)
+    h_bound = bound(h_bytes, h_tests * 3 * d)
+    log(f"  grid_round heaviest t={ht} Q={n} r={hrad:.6g} res={hgrid.res} "
+        f"cap={hgrid.cap} H={hgrid.table_size} n_tests={h_tests}: kernel "
+        f"{h_k:.3f} ms (first launch {first:.3f} ms), plain not run, bound "
+        f"{h_bound[0]:.4f} ms ({h_bound[1]})")
+    return ((t_k, t_p, pw_bound, pw_split), (s_k, s_p, s_bound, s_split),
+            (g_k, g_p, g_bound),
+            (h_k, None, h_bound, h_tests))
+
+
+# -- phase 8: the two grid_round designs on every scheduled grid ------------
+
+
+def _events_ms(fn):
+    """Device time of one call of ``fn`` in ms (CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _design_ms(pts, grid, r2, state, tiled):
+    """Median time of one launch of one design on fresh copies of
+    ``state`` (d2, idx, found and, fused, unres and res_round; the cell-key
+    sort of the coarse design included), and the state it leaves."""
+    import torch
+
+    from repro_torch.core.fixed_radius import _launch
+
+    n, k = state[0].shape
+    qid = torch.arange(n, dtype=torch.int32, device=pts.device)
+    times, st = [], None
+    for _ in range(3):
+        st = [x.clone() for x in state] + [
+            torch.zeros(1, dtype=torch.int64, device=pts.device),
+            torch.zeros(1, dtype=torch.int32, device=pts.device)]
+        fused = len(state) == 5
+        torch.cuda.synchronize()
+        times.append(_events_ms(lambda: _launch(
+            pts, grid, pts, qid, r2, k, tiled, out=tuple(st[:3]),
+            tests=st[-2], unres=st[3] if fused else None,
+            res_round=st[4] if fused else None, t=0,
+            executed=st[-1] if fused else None)))
+        if times[-1] > 200.0:
+            break
+    return statistics.median(times), st
+
+
+def phase_designs(dev, kitti):
+    """Both designs of ``grid_round`` on every scheduled grid of four
+    clouds, self-queries at k = 8: each round of the fused loop as the
+    main path runs it (on the rows still unresolved), and every row once
+    on each grid shape whose cap lies between the fine grids' and the
+    collapsed ones'.  The designs must agree bitwise; the fine design is not run
+    where its tests would pass ``FINE_TEST_BUDGET`` (on a res (2, 2, 2)
+    grid of 2^20 points it takes about 20 s).  ``kitti`` is phase 3's
+    (schedule, points).  Returns the totals for the kernels line."""
+    import torch
+
+    from repro_torch import build_index, make_dataset
+    from repro_torch.core.fixed_radius import coarse_design, stencil_slots
+    from repro_torch.core.fused_loop import build_schedule
+
+    tot = {"fused": [0.0] * 4, "all rows": [0.0] * 4}
+    for cloud, n in (("kitti", N_MAIN), ("porto", N_PORTO),
+                     ("road", N_MAIN), ("uniform", N_MAIN)):
+        if cloud == "kitti":
+            sched, pts = kitti
+        else:
+            index = build_index(make_dataset(cloud, n), backend="trueknn",
+                                device=dev)
+            r0, _ = index._start_radius(None)
+            index._set_anchor(r0)
+            sched, pts = build_schedule(index, r0), index._pts_t
+        k = 8
+        # fused_search's state: d2, idx, found, unres, res_round
+        fused = [torch.full((n, k), math.inf, device=dev),
+                 torch.full((n, k), n, dtype=torch.int32, device=dev),
+                 torch.zeros(n, dtype=torch.int32, device=dev),
+                 torch.isfinite(pts[:, 0]).to(torch.uint8),
+                 torch.full((n,), -1, dtype=torch.int32, device=dev)]
+        seen = set()
+        for t, grid in enumerate(sched.grids):
+            r2 = float(np.float32(sched.radii[t]) ** 2)
+            modes = [("fused", fused)]
+            shape = (grid.res, grid.cap, grid.table_size)
+            if 16 < grid.cap < (1 << 19) and shape not in seen:
+                seen.add(shape)
+                modes.append(("all rows", [torch.empty_like(x)
+                                           for x in fused[:3]]))
+            for mode, state in modes:
+                rows = int(state[3].sum()) if mode == "fused" else n
+                if rows == 0:
+                    continue
+                c_ms, c_st = _design_ms(pts, grid, r2, state, True)
+                n_tests = int(c_st[-2].item())
+                f_ms = None
+                if n_tests <= FINE_TEST_BUDGET:
+                    f_ms, f_st = _design_ms(pts, grid, r2, state, False)
+                    for x, y in zip(c_st, f_st):
+                        check(torch.equal(x, y), f"designs differ: {cloud} "
+                              f"t={t} {mode}")
+                pick = coarse_design(grid)
+                if f_ms is not None:
+                    acc = tot[mode]
+                    for j, v in enumerate((c_ms if pick else f_ms,
+                                           min(c_ms, f_ms), f_ms, c_ms)):
+                        acc[j] += v
+                fine = "not run" if f_ms is None else f"{f_ms:.3f} ms"
+                log(f"  {cloud} t={t} {mode}: rows={rows} res={grid.res} "
+                    f"cap={grid.cap} H={grid.table_size} "
+                    f"slots={stencil_slots(grid):.6g} n_tests={n_tests}: "
+                    f"coarse {c_ms:.3f} ms, fine {fine}; the wrapper takes "
+                    f"{'coarse' if pick else 'fine'}")
+                if mode == "fused":
+                    fused = c_st[:5]
+        del sched, pts, fused
+        torch.cuda.empty_cache()
+    summary = {}
+    for mode, (picked, best, fine, coarse) in tot.items():
+        log(f"  {mode}, over the rounds both designs ran: the wrapper's "
+            f"picks {picked:.3f} ms, the faster design each round "
+            f"{best:.3f} ms, always fine {fine:.3f} ms, always coarse "
+            f"{coarse:.3f} ms")
+        summary[mode] = {"picked_ms": picked, "best_ms": best,
+                         "fine_ms": fine, "coarse_ms": coarse}
+    return summary
 
 
 def main() -> int:
@@ -508,8 +808,8 @@ def main() -> int:
     log("phase 2: pairwise_topk kernel vs plain version")
     pw_err = phase_pairwise(dev, kitti, porto, rng)
     log("phase 3: grid_round kernel vs plain version")
-    n_sched, grid_err = phase_grid(dev, kitti_np, rng)
-    log(f"  (schedule of {n_sched} rounds)")
+    kitti_sched, grid_err, heavy = phase_grid(dev, kitti_np, rng)
+    log(f"  (schedule of {len(kitti_sched[0].radii)} rounds)")
     log("phase 4: main path, trueknn KnnSpec(8) self-query on kitti 2^20")
     index, b1, main_counts, radius = phase_main(dev, kitti_np, rng)
     log("phase 5: brute RangeSpec at full width")
@@ -518,8 +818,12 @@ def main() -> int:
     log("phase 6: porto 2^18, fused and host loop")
     phase_porto(dev, rng)
     log("phase 7: kernel times at main-path shapes")
-    (t_k, t_p, pw_b), (g_k, g_p, g_b) = phase_times(
-        dev, index, b1, q, qid, thr)
+    pw_t, samp_t, g_t, heavy_t = phase_times(dev, index, b1, q, qid, thr,
+                                             heavy, rng)
+    log("phase 8: grid_round's two designs on every scheduled grid")
+    sweep = phase_designs(dev, kitti_sched)
+    t_k, t_p, pw_b, _ = pw_t
+    g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t_start:.1f}s")
 
@@ -538,6 +842,12 @@ def main() -> int:
             "bound_by": pw_b[1],
             "library_ms": None,
             "held_in": ["phase 2", "phase 5"],
+            "shapes": [
+                shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
+                          merge_ms=t[3][2])
+                for tag, t in (("Q=4096 N=2^20 d=3 k=32 range", pw_t),
+                               ("Q=100 N=2^20 d=3 k=5 sampler", samp_t))
+            ],
         },
         {
             "name": "grid_round",
@@ -552,7 +862,14 @@ def main() -> int:
             "bound_ms": g_b[0],
             "bound_by": g_b[1],
             "library_ms": None,
-            "held_in": ["phase 3", "phase 7"],
+            "held_in": ["phase 3", "phase 7", "phase 8"],
+            "design_sweep": sweep,
+            "shapes": [
+                shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),
+                shape_row(f"heaviest round t={heavy[2]} Q=2^20 k=8 "
+                          f"res={heavy[0].res} cap={heavy[0].cap}",
+                          *heavy_t[:3], n_tests=heavy_t[3]),
+            ],
         },
     ]
     print(smi, flush=True)

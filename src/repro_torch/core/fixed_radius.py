@@ -15,6 +15,15 @@ sequence in torch) for tensors on the CPU.  Both also serve the fused
 multi-round loop (``repro_torch.core.fused_loop``) through the ``unres``
 mask: skipped rows keep their outputs, run rows are replaced, resolved
 rows get their round and leave the mask.
+
+The grid picks the kernel's design (``coarse_design``): from
+``COARSE_MIN_SLOTS`` mean stencil slots a query on, the wrapper first
+sorts the query rows by their linear cell key (``cell_keys``; resolved
+rows last in fused mode) on the device, with no host sync, and hands the
+kernel the permutation: a block serves the queries of one cell at a time,
+staging each stencil bucket through shared memory, and still writes each
+row in place.  Below it, each thread walks its own query's stencil in the
+rows' own order.
 """
 
 from __future__ import annotations
@@ -28,10 +37,31 @@ from ..kernels.build import count_launch, extension
 from ..kernels.ops import as_f32
 from .grid import Grid, cell_coords_of, hash_coords, stencil_offsets
 
-__all__ = ["fixed_radius_round", "grid_round", "grid_round_plain"]
+__all__ = ["fixed_radius_round", "grid_round", "grid_round_plain",
+           "cell_keys", "coarse_design", "stencil_slots", "COARSE_MIN_SLOTS"]
 
 #: (rows, 3^d * cap) candidate block per step of the plain version
 _CAND_ELEMS = {"cpu": 1 << 21, "cuda": 1 << 25}
+
+#: mean stencil slots a query walks (``stencil_slots``) from which a round
+#: takes the kernel's coarse design, which stages buckets through shared
+#: memory for the queries of one cell (below it: one thread a query); set
+#: from both designs' times on every scheduled grid of four clouds
+#: (``chip_smoke.py`` phase 8, PERF.md)
+COARSE_MIN_SLOTS = 384
+
+
+def stencil_slots(grid: Grid) -> float:
+    """3^d * N / H: the stencil's cells times the points a bucket holds on
+    average, a quarter to a half of the slots a query walks on average (a
+    table holds two to four buckets per occupied cell).  Unlike ``cap``,
+    which one dense cell sets, it tracks the work per query."""
+    return 3 ** len(grid.res) * grid.n_points / grid.table_size
+
+
+def coarse_design(grid: Grid) -> bool:
+    """Whether a round on ``grid`` takes the kernel's coarse design."""
+    return stencil_slots(grid) >= COARSE_MIN_SLOTS
 
 
 def _pad_points(points: torch.Tensor) -> torch.Tensor:
@@ -99,6 +129,22 @@ def _chunk_candidates(
         top_d = torch.cat([top_d, top_d.new_full(pad, math.inf)], 1)
         top_i = torch.cat([top_i, top_i.new_full(pad, n)], 1)
     return top_d, top_i, found, valid
+
+
+def cell_keys(q, grid: Grid, unres=None):
+    """(Q,) int64 linear cell key of each query row: the cell the kernel
+    finds for it (non-finite coordinates count as 0, then the clamp to the
+    grid), numbered with the last axis fastest.  With ``unres`` (fused
+    mode) every resolved row's key is moved past all cells, so a stable
+    sort puts the unresolved rows first, each group in cell order."""
+    qfin = torch.where(torch.isfinite(q), q, 0.0)
+    coords = cell_coords_of(qfin, grid.origin, grid.inv_cell, grid.res_arr)
+    key = coords[:, 0].to(torch.int64)
+    for a in range(1, q.shape[1]):
+        key = key * grid.res[a] + coords[:, a]
+    if unres is not None:
+        key = key + (unres == 0).to(torch.int64) * math.prod(grid.res)
+    return key
 
 
 def grid_round_plain(points, grid: Grid, q, qid, r2: float, k: int, *, out,
@@ -183,10 +229,24 @@ def _grid_round_cuda(points, grid: Grid, q, qid, r2: float, k: int, *, out,
         raise ValueError(f"grid_round: 1 <= d <= 3 (one hash prime per axis), got {d}")
     if nq == 0:
         return
+    _launch(points, grid, q, qid, r2, k, coarse_design(grid), out=out,
+            tests=tests, unres=unres, res_round=res_round, t=t,
+            executed=executed)
+
+
+def _launch(points, grid: Grid, q, qid, r2: float, k: int, tiled: bool, *,
+            out, tests, unres=None, res_round=None, t: int = 0,
+            executed=None) -> None:
+    """One launch of the kernel's coarse (``tiled``) or fine design on
+    checked tensors.  The wrapper picks the design with ``coarse_design``;
+    ``chip_smoke.py`` calls this directly to time both."""
+    od, oi, of = out
+    perm = (torch.argsort(cell_keys(q, grid, unres), stable=True) if tiled
+            else None)
     extension().grid_round(
         points, grid.buckets, grid.point_cells, grid.origin, grid.inv_cell,
-        grid.res_arr, q, qid, int(k), float(r2), od, oi, of, unres,
-        res_round, int(t), tests, executed,
+        grid.res_arr, q, qid, perm, int(k), float(r2), tiled, od, oi, of,
+        unres, res_round, int(t), tests, executed,
     )
     count_launch("grid_round")
 

@@ -42,8 +42,9 @@ void check_launch(int err, const char* name) {
 void pairwise_topk(const torch::Tensor& q, const torch::Tensor& qid,
                    const torch::Tensor& p,
                    const std::optional<torch::Tensor>& row_mask, int64_t k,
-                   double thr, int64_t metric, const torch::Tensor& out_d,
-                   const torch::Tensor& out_i, const torch::Tensor& out_c) {
+                   int64_t splits, int64_t span, double thr, int64_t metric,
+                   const torch::Tensor& part_d, const torch::Tensor& part_i,
+                   const torch::Tensor& part_c) {
   const c10::Device dev = p.device();
   TORCH_CHECK(dev.is_cuda(), "pairwise_topk: needs CUDA tensors");
   const c10::cuda::CUDAGuard guard(dev);
@@ -57,19 +58,55 @@ void pairwise_topk(const torch::Tensor& q, const torch::Tensor& qid,
                                        "row_mask"),
           static_cast<int>(q.size(0)), static_cast<int>(p.size(0)),
           static_cast<int>(q.size(1)), static_cast<int>(k),
+          static_cast<int>(splits), static_cast<int>(span),
           static_cast<float>(thr), static_cast<int>(metric),
+          ptr<float>(part_d, f32, dev, "part_d"),
+          ptr<int>(part_i, i32, dev, "part_i"),
+          ptr<int>(part_c, i32, dev, "part_c"),
+          c10::cuda::getCurrentCUDAStream(dev.index()).stream()),
+      "pairwise_topk");
+}
+
+void pairwise_topk_merge(const torch::Tensor& part_d,
+                         const torch::Tensor& part_i,
+                         const torch::Tensor& part_c,
+                         const std::optional<torch::Tensor>& row_mask,
+                         int64_t n, const torch::Tensor& out_d,
+                         const torch::Tensor& out_i,
+                         const torch::Tensor& out_c) {
+  const c10::Device dev = part_d.device();
+  TORCH_CHECK(dev.is_cuda(), "pairwise_topk_merge: needs CUDA tensors");
+  const c10::cuda::CUDAGuard guard(dev);
+  const auto f32 = torch::kFloat32, i32 = torch::kInt32;
+  check_launch(
+      pairwise_topk_merge_launch(
+          ptr<const float>(part_d, f32, dev, "part_d"),
+          ptr<const int>(part_i, i32, dev, "part_i"),
+          ptr<const int>(part_c, i32, dev, "part_c"),
+          opt_ptr<const unsigned char>(row_mask, torch::kUInt8, dev,
+                                       "row_mask"),
+          static_cast<int>(out_d.size(0)), static_cast<int>(part_d.size(0)),
+          static_cast<int>(out_d.size(1)), static_cast<int>(n),
           ptr<float>(out_d, f32, dev, "out_d"),
           ptr<int>(out_i, i32, dev, "out_i"),
           ptr<int>(out_c, i32, dev, "out_c"),
           c10::cuda::getCurrentCUDAStream(dev.index()).stream()),
-      "pairwise_topk");
+      "pairwise_topk_merge");
+}
+
+int64_t rows_per_block(int64_t d, int64_t k, int64_t metric) {
+  return pairwise_topk_rows_per_block(static_cast<int>(d),
+                                      static_cast<int>(k),
+                                      static_cast<int>(metric));
 }
 
 void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
                 const torch::Tensor& point_cells, const torch::Tensor& origin,
                 const torch::Tensor& inv_cell, const torch::Tensor& res,
-                const torch::Tensor& q, const torch::Tensor& qid, int64_t k,
-                double r2, const torch::Tensor& out_d2,
+                const torch::Tensor& q, const torch::Tensor& qid,
+                const std::optional<torch::Tensor>& perm, int64_t k,
+                double r2, bool tiled,
+                const torch::Tensor& out_d2,
                 const torch::Tensor& out_i, const torch::Tensor& found,
                 const std::optional<torch::Tensor>& unres,
                 const std::optional<torch::Tensor>& res_round, int64_t t,
@@ -89,10 +126,12 @@ void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
           ptr<const int>(res, i32, dev, "res"),
           ptr<const float>(q, f32, dev, "queries"),
           ptr<const int>(qid, i32, dev, "query_ids"),
+          opt_ptr<const long long>(perm, torch::kInt64, dev, "perm"),
           static_cast<int>(q.size(0)), static_cast<int>(pts.size(0)),
           static_cast<int>(q.size(1)), static_cast<int>(buckets.size(0)),
           static_cast<int>(buckets.size(1)), static_cast<int>(k),
-          static_cast<float>(r2), ptr<float>(out_d2, f32, dev, "out_d2"),
+          static_cast<float>(r2), tiled ? 1 : 0,
+          ptr<float>(out_d2, f32, dev, "out_d2"),
           ptr<int>(out_i, i32, dev, "out_i"),
           ptr<int>(found, i32, dev, "found"),
           opt_ptr<unsigned char>(unres, torch::kUInt8, dev, "unres"),
@@ -108,5 +147,7 @@ void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pairwise_topk", &pairwise_topk);
+  m.def("pairwise_topk_merge", &pairwise_topk_merge);
+  m.def("pairwise_topk_rows_per_block", &rows_per_block);
   m.def("grid_round", &grid_round);
 }

@@ -10,27 +10,49 @@
 extern "C" {
 #endif
 
-// q (nq, d) f32, qid (nq,) i32, p (n, d) f32, row_mask (nq,) u8 or null
-// (rows with 0 are skipped and their outputs left untouched), out_d (nq, k)
-// f32, out_i (nq, k) i32, out_c (nq,) i32.  metric: 0 = l2 (squared),
-// 1 = l1, 2 = linf.
+// pairwise_topk, first pass: grid (query tiles x splits); split s scans
+// the points [s * span, min((s + 1) * span, n)).  q (nq, d) f32, qid (nq,)
+// i32, p (n, d) f32, row_mask (nq,) u8 or null (rows with 0 are skipped and
+// their outputs left untouched).  Partial outputs, split-major: part_d /
+// part_i (splits, nq, k) f32 / i32, part_c (splits, nq) i32; with
+// splits == 1 they may be the final outputs themselves.  metric: 0 = l2
+// (squared), 1 = l1, 2 = linf.
 int pairwise_topk_launch(const float* q, const int* qid, const float* p,
                          const unsigned char* row_mask, int nq, int n, int d,
-                         int k, float thr, int metric, float* out_d,
-                         int* out_i, int* out_c, void* stream);
+                         int k, int splits, int span, float thr, int metric,
+                         float* part_d, int* part_i, int* part_c,
+                         void* stream);
+
+// Query rows one block of the pairwise_topk first pass serves at this
+// (d, k, metric): the host chooses splits from it.
+int pairwise_topk_rows_per_block(int d, int k, int metric);
+
+// pairwise_topk, merge pass: per row, the splits' partial lists merged in
+// split order (the earlier split wins a tie), counts summed.  Writes
+// out_d / out_i (nq, k) and out_c (nq,) for the rows row_mask selects (all
+// rows when it is null).  n is the sentinel index of empty slots.
+int pairwise_topk_merge_launch(const float* part_d, const int* part_i,
+                               const int* part_c,
+                               const unsigned char* row_mask, int nq,
+                               int splits, int k, int n, float* out_d,
+                               int* out_i, int* out_c, void* stream);
 
 // pts (n, d) f32 (only matched rows are read), buckets (table_size, cap)
 // i32 padded with n, point_cells (n + 1, d) i32, origin / inv_cell (d,)
-// f32, res (d,) i32, q (nq, d) f32, qid (nq,) i32, out_d2 / out_i (nq, k),
-// found (nq,) i32, tests one u64 that is added to.  unres (nq,) u8,
+// f32, res (d,) i32, q (nq, d) f32, qid (nq,) i32, out_d2 / out_i (nq,
+// k), found (nq,) i32, tests one u64 that is added to.  unres (nq,) u8,
 // res_round (nq,) i32 and executed (one i32) are null outside the fused
-// loop.  1 <= d <= 3.
+// loop.  tiled != 0 takes the coarse-grid design (cap a multiple of 4,
+// buckets 16-byte aligned) and needs perm (nq,) i64, a permutation of the
+// rows (position i works on row perm[i]); the fine design works on the
+// rows in their own order and takes perm = null.  1 <= d <= 3.
 int grid_round_launch(const float* pts, const int* buckets,
                       const int* point_cells, const float* origin,
                       const float* inv_cell, const int* res, const float* q,
-                      const int* qid, int nq, int n, int d, int table_size,
-                      int cap, int k, float r2, float* out_d2, int* out_i,
-                      int* found, unsigned char* unres, int* res_round, int t,
+                      const int* qid, const long long* perm, int nq, int n,
+                      int d, int table_size, int cap, int k, float r2,
+                      int tiled, float* out_d2, int* out_i, int* found,
+                      unsigned char* unres, int* res_round, int t,
                       unsigned long long* tests, int* executed, void* stream);
 
 #ifdef __cplusplus

@@ -6,19 +6,37 @@
 // (distance, index), and the number of points with distance <= thr.  The
 // self index (query_ids[row]) is skipped; query_ids == n means "no self".
 //
-// Design: one thread per query, kThreads queries per block.  The block
-// streams point tiles through shared memory (every thread reads the same
-// point, so the loads broadcast) and each thread keeps its running k-best
-// list in registers (k <= 32) or in its own output row (any larger k, as the
-// range route's second pass asks for).  The (Q, N) distance matrix never
-// exists.
+// Design: two passes.  The first runs on a grid of (query tiles x S point
+// ranges): each block streams only its own contiguous range of the points
+// through shared memory and keeps, per query row, the range's k-best list
+// and in-radius count, written to workspace that the wrapper allocates:
+// lists (S, Q, k), counts (S, Q).  The host picks S from (Q, N, k) so that
+// several blocks per SM are in flight even at Q = 100 (the Alg. 2
+// sampler); with S = 1 the first pass writes the outputs and the second is
+// skipped.  The second pass merges each row's S partial lists, one thread
+// a row: ranges are contiguous and increasing, so taking the earlier range
+// on an equal distance, which is the lower index, is the global (distance,
+// lowest index) order; counts are summed in int32.  The (Q, N) distance
+// matrix never exists.  The first pass's rows per block, which the host
+// needs to choose S, come from pairwise_topk_rows_per_block below.
+//
+// First pass, k <= 32 (every call on the main path): a warp serves four
+// queries (one for the generic forms) and its lanes take 32 consecutive
+// points at a time, so each shared load of a point serves four tests; the
+// queries' lists are spread over the warp's lanes, and a candidate below
+// a list's k-th best is inserted by the whole warp with one ballot and one
+// shuffle, about k ln(N / k) times a query.  (With one thread a query, a
+// thread's insertion sort held up its warp whenever any lane had a
+// candidate to insert, which early in every range is nearly always.)
+// First pass, k > 32 (the range route's second pass): one thread a query,
+// its list in its workspace row.
 //
 // Bound on this card: operations.  Per pair the L2 form costs d subtractions
-// and d multiply-adds, 3d FP32 flops, against O((Q + N) d) bytes moved; at
-// the main path's shapes (Q in the thousands, N = 2^20) the FP32 pipe, not
-// HBM, is the limit.  This first version is the simple, exact one: a block
-// walks all N points, so with few queries only a few SMs work (splitting N
-// across blocks with a merge pass is the next step).
+// and d multiply-adds, 3d FP32 flops, against O((Q + N) d) bytes moved.  The
+// inner loop keeps to the distance, one compare for the count and one for
+// the list: the self index is not tested per pair; a range that holds it
+// takes its pair back out of the count once, at the end.  For L2 at d = 2
+// and 3 the tile holds float4 rows (one shared load a point).
 //
 // Distance forms, chosen on the REAL feature dim d:
 //   L2,  d <= 8: diff form, acc = q0'^2, then acc = fma(qa', qa', acc) with
@@ -38,12 +56,12 @@
 
 namespace {
 
-using repro_torch::GlobalTopK;
-using repro_torch::RegTopK;
+using repro_torch::MemTopK;
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 128;
 constexpr int kTileFloats = 8192;  // 32 KB of shared memory per block
 constexpr int kMaxTile = 2048;
+constexpr int kMergeThreads = 128;
 constexpr int kLowD = 8;
 enum { kL2 = 0, kL1 = 1, kLinf = 2 };
 
@@ -64,6 +82,21 @@ __device__ __forceinline__ float lowd_dist(const float (&qv)[kLowD],
         acc = fmaxf(acc, fabsf(df));
       }
     }
+  }
+  return acc;
+}
+
+// The same L2 chain at a compile-time d (2 or 3) on a float4 row.
+template <int D>
+__device__ __forceinline__ float l2_dist4(const float (&qv)[kLowD],
+                                          const float4 pv) {
+  float df = __fsub_rn(qv[0], pv.x);
+  float acc = __fmul_rn(df, df);
+  df = __fsub_rn(qv[1], pv.y);
+  acc = __fmaf_rn(df, df, acc);
+  if (D > 2) {
+    df = __fsub_rn(qv[2], pv.z);
+    acc = __fmaf_rn(df, df, acc);
   }
   return acc;
 }
@@ -90,132 +123,371 @@ __device__ __forceinline__ float sq_norm(const float* v, int d) {
   return s;
 }
 
-template <class List, int METRIC, bool LOWD>
+// FORM: 2 or 3 = L2 at that d on float4 tiles; 0 = any d <= 8 on (tp, d)
+// tiles; -1 = d > 8 (identity form for L2).
+constexpr int form_of(int metric, int d) {
+  return metric == kL2 && (d == 2 || d == 3) ? d : d <= kLowD ? 0 : -1;
+}
+
+// Query rows a warp serves for k <= 32: four where the tile holds float4
+// rows, else one.
+constexpr int qpw_of(int form) { return form > 0 ? 4 : 1; }
+
+// Query rows a block of the first pass serves: a warp's rows for k <= 32,
+// one a thread beyond.
+constexpr int rows_per_block(int form, int k) {
+  return k <= 32 ? kThreads / 32 * qpw_of(form) : kThreads;
+}
+
+// Stages points [base, base + m) in the block's tile: float4 rows for
+// FORM > 0, else (m, d) floats and, for the L2 identity form, their norms.
+template <int METRIC, int FORM>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ p,
+                                           int base, int m, int d,
+                                           float4* smem4, float* tile,
+                                           float* norms) {
+  __syncthreads();  // the previous tile is no longer read
+  const float* src = p + (size_t)base * d;
+  if (FORM > 0) {
+    for (int j = threadIdx.x; j < m; j += blockDim.x)
+      smem4[j] = make_float4(src[j * FORM], src[j * FORM + 1],
+                             FORM > 2 ? src[j * FORM + 2] : 0.0f, 0.0f);
+  } else {
+    for (int e = threadIdx.x; e < m * d; e += blockDim.x) tile[e] = src[e];
+  }
+  __syncthreads();
+  if (FORM < 0 && METRIC == kL2) {
+    for (int j = threadIdx.x; j < m; j += blockDim.x)
+      norms[j] = sq_norm(tile + j * d, d);
+    __syncthreads();
+  }
+}
+
+// One pair in the kernel's form, the point read from global memory: the
+// self pair, which the first pass counts and then takes back out.
+template <int METRIC, int FORM>
+__device__ __forceinline__ float pair_dist(const float (&qv)[kLowD],
+                                           const float* qr, float qn,
+                                           const float* ps, int d) {
+  if (FORM >= 0) return lowd_dist<METRIC>(qv, ps, d);
+  return highd_dist<METRIC>(qr, qn, ps, METRIC == kL2 ? sq_norm(ps, d) : 0.0f,
+                            d);
+}
+
+// k <= 32: one warp serves QPW queries of the block's tile of queries.  Its
+// lanes take 32 consecutive candidates at a time (lane l the l-th), so a
+// shared load of one point serves QPW tests, and each query's list is
+// spread over the warp: lane j holds entry j, lanes j >= k hold (+inf, n).
+// A candidate below its query's k-th best is inserted by the whole warp
+// (a ballot finds its place, the entries after it move up a lane), the
+// candidates of a chunk in lane order, which is index order.
+template <int METRIC, int FORM, int QPW>
+__global__ void __launch_bounds__(kThreads)
+pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
+                     const float* __restrict__ p,
+                     const unsigned char* __restrict__ row_mask, int nq,
+                     int n, int d, int k, int span, int tp, float thr,
+                     float* __restrict__ part_d, int* __restrict__ part_i,
+                     int* __restrict__ part_c) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // (tp, d) coordinates
+  float* norms = tile + tp * d;  // (tp,) squared norms, L2 identity only
+  constexpr bool kLow = FORM >= 0;
+  constexpr int kWarps = kThreads / 32;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  int row[QPW], self[QPW], count[QPW], li[QPW];
+  float qv[QPW][kLowD], qn[QPW], ld[QPW], gate[QPW];
+  bool any_active = false;
+#pragma unroll
+  for (int u = 0; u < QPW; ++u) {
+    row[u] = (blockIdx.x * kWarps + warp) * QPW + u;
+    const bool act =
+        row[u] < nq && (row_mask == nullptr || row_mask[row[u]] != 0);
+    any_active = any_active || act;
+    self[u] = act ? qid[row[u]] : -1;
+    const float* qr = q + (size_t)(act ? row[u] : 0) * d;
+#pragma unroll
+    for (int a = 0; a < kLowD; ++a) qv[u][a] = (kLow && a < d) ? qr[a] : 0.0f;
+    qn[u] = (!kLow && METRIC == kL2) ? sq_norm(qr, d) : 0.0f;
+    count[u] = 0;
+    ld[u] = CUDART_INF_F;
+    li[u] = n;
+    // an inactive query admits nothing
+    gate[u] = act ? CUDART_INF_F : -1.0f;
+  }
+  if (!__syncthreads_or(any_active)) return;  // the block leaves together
+  const int lo = blockIdx.y * span;
+  const int hi = min(n, lo + span);
+
+  // one chunk of 32 candidates; full_chunk: all 32 are in the range
+  auto chunk = [&](int base, int c0, bool full_chunk) {
+    const bool valid = full_chunk || c0 + lane < hi - base;
+    const int j = valid ? c0 + lane : 0;  // the rest reads a staged row
+    float dist[QPW];
+    bool pass = false;
+#pragma unroll
+    for (int u = 0; u < QPW; ++u) {
+      const float* qr = q + (size_t)(row[u] < nq ? row[u] : 0) * d;
+      if (FORM > 0) {
+        dist[u] = l2_dist4<(FORM > 0 ? FORM : 2)>(qv[u], smem4[j]);
+      } else if (FORM == 0) {
+        dist[u] = lowd_dist<METRIC>(qv[u], tile + j * d, d);
+      } else {
+        dist[u] = highd_dist<METRIC>(qr, qn[u], tile + j * d, norms[j], d);
+      }
+      count[u] += (valid && dist[u] <= thr);
+      pass = pass || (valid && dist[u] < gate[u]);
+    }
+    if (!__any_sync(full, pass)) return;
+#pragma unroll
+    for (int u = 0; u < QPW; ++u) {
+      unsigned todo = __ballot_sync(full, valid && dist[u] < gate[u]);
+      while (todo != 0) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float dd = __shfl_sync(full, dist[u], src);
+        const int gid = base + c0 + src;
+        if (!(dd < gate[u]) || gid == self[u]) continue;  // warp-uniform
+        const int at = __popc(__ballot_sync(full, ld[u] <= dd));
+        const float up_d = __shfl_up_sync(full, ld[u], 1);
+        const int up_i = __shfl_up_sync(full, li[u], 1);
+        if (lane > at) {
+          ld[u] = up_d;
+          li[u] = up_i;
+        } else if (lane == at) {
+          ld[u] = dd;
+          li[u] = gid;
+        }
+        if (lane >= k) {
+          ld[u] = CUDART_INF_F;
+          li[u] = n;
+        }
+        gate[u] = __shfl_sync(full, ld[u], k - 1);
+      }
+    }
+  };
+
+  for (int base = lo; base < hi; base += tp) {
+    const int m = min(tp, hi - base);
+    stage_tile<METRIC, FORM>(p, base, m, d, smem4, tile, norms);
+    int c0 = 0;
+    for (; c0 + 32 <= m; c0 += 32) chunk(base, c0, true);
+    if (c0 < m) chunk(base, c0, false);
+  }
+
+#pragma unroll
+  for (int u = 0; u < QPW; ++u) {
+    if (gate[u] < 0.0f) continue;  // inactive: nothing is written
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      count[u] += __shfl_xor_sync(full, count[u], off);
+    const size_t out_row = ((size_t)blockIdx.y * nq + row[u]) * k;
+    if (lane < k) {
+      part_d[out_row + lane] = ld[u];
+      part_i[out_row + lane] = li[u];
+    }
+    if (lane == 0) {
+      // the self pair was counted; take it back out with the same
+      // arithmetic on the same values
+      int c = count[u];
+      if (self[u] >= lo && self[u] < hi)
+        c -= pair_dist<METRIC, FORM>(qv[u], q + (size_t)row[u] * d, qn[u],
+                                     p + (size_t)self[u] * d, d) <= thr;
+      part_c[(size_t)blockIdx.y * nq + row[u]] = c;
+    }
+  }
+}
+
+// k > 32: one thread a query, its list in its workspace row.
+template <int METRIC, int FORM>
 __global__ void __launch_bounds__(kThreads)
 pairwise_topk_kernel(const float* __restrict__ q, const int* __restrict__ qid,
                      const float* __restrict__ p,
                      const unsigned char* __restrict__ row_mask, int nq, int n,
-                     int d, int k, int tp, float thr, float* __restrict__ out_d,
-                     int* __restrict__ out_i, int* __restrict__ out_c) {
-  extern __shared__ float smem[];
-  float* tile = smem;           // (tp, d) point coordinates
-  float* norms = smem + tp * d;  // (tp,) squared norms, L2 identity form only
+                     int d, int k, int span, int tp, float thr,
+                     float* __restrict__ part_d, int* __restrict__ part_i,
+                     int* __restrict__ part_c) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // (tp, d) coordinates
+  float* norms = tile + tp * d;  // (tp,) squared norms, L2 identity only
+  constexpr bool kVec = FORM > 0;
+  constexpr bool kLow = FORM >= 0;
 
   const int row = blockIdx.x * kThreads + threadIdx.x;
   const bool active =
       row < nq && (row_mask == nullptr || row_mask[row] != 0);
   if (!__syncthreads_or(active)) return;  // the whole block leaves together
+  const int lo = blockIdx.y * span;
+  const int hi = min(n, lo + span);
 
   const int self = active ? qid[row] : -1;
   const float* qr = q + (size_t)(active ? row : 0) * d;
   float qv[kLowD];
   float qn = 0.0f;
-  if (LOWD) {
+  if (kLow) {
 #pragma unroll
     for (int a = 0; a < kLowD; ++a) qv[a] = (active && a < d) ? qr[a] : 0.0f;
   } else if (METRIC == kL2 && active) {
     qn = sq_norm(qr, d);
   }
+  const size_t out_row = ((size_t)blockIdx.y * nq + row) * k;
 
-  List list;
-  if (active) list.init(out_d + (size_t)row * k, out_i + (size_t)row * k, k, n);
+  MemTopK list;
+  if (active) list.init(part_d + out_row, part_i + out_row, 1, k, n);
   int count = 0;
 
-  for (int base = 0; base < n; base += tp) {
-    const int m = min(tp, n - base);
-    __syncthreads();  // the previous tile is no longer read
-    const float* src = p + (size_t)base * d;
-    for (int e = threadIdx.x; e < m * d; e += kThreads) tile[e] = src[e];
-    __syncthreads();
-    if (!LOWD && METRIC == kL2) {
-      for (int j = threadIdx.x; j < m; j += kThreads)
-        norms[j] = sq_norm(tile + j * d, d);
-      __syncthreads();
-    }
+  for (int base = lo; base < hi; base += tp) {
+    const int m = min(tp, hi - base);
+    stage_tile<METRIC, FORM>(p, base, m, d, smem4, tile, norms);
     if (!active) continue;
     for (int j = 0; j < m; ++j) {
-      const int gidx = base + j;
-      if (gidx == self) continue;
-      const float* pv = tile + j * d;
-      const float dist = LOWD ? lowd_dist<METRIC>(qv, pv, d)
-                              : highd_dist<METRIC>(qr, qn, pv, norms[j], d);
+      float dist;
+      if (kVec) {
+        dist = l2_dist4<(FORM > 0 ? FORM : 2)>(qv, smem4[j]);
+      } else if (kLow) {
+        dist = lowd_dist<METRIC>(qv, tile + j * d, d);
+      } else {
+        dist = highd_dist<METRIC>(qr, qn, tile + j * d, norms[j], d);
+      }
       count += (dist <= thr);
-      if (dist < list.worst) list.push(dist, gidx, k);
+      const int g = base + j;
+      if (dist < list.worst && g != self) list.push(dist, g, k);
     }
   }
   if (active) {
-    list.store(out_d + (size_t)row * k, out_i + (size_t)row * k, k);
-    out_c[row] = count;
+    // the self pair was counted above; take it back out with the same
+    // arithmetic on the same values
+    if (self >= lo && self < hi)
+      count -= pair_dist<METRIC, FORM>(qv, qr, qn, p + (size_t)self * d, d) <=
+               thr;
+    part_c[(size_t)blockIdx.y * nq + row] = count;
   }
 }
 
-template <class List, int METRIC>
-cudaError_t launch_form(bool lowd, dim3 grid, int smem, cudaStream_t stream,
-                        const float* q, const int* qid, const float* p,
-                        const unsigned char* row_mask, int nq, int n, int d,
-                        int k, int tp, float thr, float* out_d, int* out_i,
-                        int* out_c) {
-  if (lowd) {
-    pairwise_topk_kernel<List, METRIC, true><<<grid, kThreads, smem, stream>>>(
-        q, qid, p, row_mask, nq, n, d, k, tp, thr, out_d, out_i, out_c);
+// Merge: one thread a row, the list in the output row.
+__global__ void __launch_bounds__(kMergeThreads)
+pairwise_merge_kernel(const float* __restrict__ part_d,
+                      const int* __restrict__ part_i,
+                      const int* __restrict__ part_c,
+                      const unsigned char* __restrict__ row_mask, int nq,
+                      int splits, int k, int n, float* __restrict__ out_d,
+                      int* __restrict__ out_i, int* __restrict__ out_c) {
+  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  if (row >= nq || (row_mask != nullptr && row_mask[row] == 0)) return;
+  MemTopK list;
+  list.init(out_d + (size_t)row * k, out_i + (size_t)row * k, 1, k, n);
+  int count = 0;
+  for (int s = 0; s < splits; ++s) {
+    const size_t at = ((size_t)s * nq + row) * k;
+    count += part_c[(size_t)s * nq + row];
+    // arriving in (range, slot) order and going after every equal entry
+    // keeps the lowest index first
+    for (int j = 0; j < k; ++j) {
+      const float dv = part_d[at + j];
+      if (!(dv < list.worst)) break;
+      list.push(dv, part_i[at + j], k);
+    }
+  }
+  out_c[row] = count;
+}
+
+struct Args {
+  const float* q;
+  const int* qid;
+  const float* p;
+  const unsigned char* row_mask;
+  int nq, n, d, k, span, tp;
+  float thr;
+  float* part_d;
+  int* part_i;
+  int* part_c;
+};
+
+template <int METRIC, int FORM>
+cudaError_t launch_form(int splits, int smem, cudaStream_t stream,
+                        const Args& a) {
+  const int per_block = rows_per_block(FORM, a.k);
+  const dim3 grid((a.nq + per_block - 1) / per_block, splits);
+  if (a.k <= 32) {
+    pairwise_warp_kernel<METRIC, FORM, qpw_of(FORM)>
+        <<<grid, kThreads, smem, stream>>>(
+            a.q, a.qid, a.p, a.row_mask, a.nq, a.n, a.d, a.k, a.span, a.tp,
+            a.thr, a.part_d, a.part_i, a.part_c);
   } else {
-    pairwise_topk_kernel<List, METRIC, false><<<grid, kThreads, smem, stream>>>(
-        q, qid, p, row_mask, nq, n, d, k, tp, thr, out_d, out_i, out_c);
+    pairwise_topk_kernel<METRIC, FORM><<<grid, kThreads, smem, stream>>>(
+        a.q, a.qid, a.p, a.row_mask, a.nq, a.n, a.d, a.k, a.span, a.tp, a.thr,
+        a.part_d, a.part_i, a.part_c);
   }
   return cudaGetLastError();
 }
 
-template <class List>
-cudaError_t launch_list(int metric, bool lowd, dim3 grid, int smem,
-                        cudaStream_t stream, const float* q, const int* qid,
-                        const float* p, const unsigned char* row_mask, int nq,
-                        int n, int d, int k, int tp, float thr, float* out_d,
-                        int* out_i, int* out_c) {
-  switch (metric) {
-    case kL2:
-      return launch_form<List, kL2>(lowd, grid, smem, stream, q, qid, p,
-                                    row_mask, nq, n, d, k, tp, thr, out_d,
-                                    out_i, out_c);
-    case kL1:
-      return launch_form<List, kL1>(lowd, grid, smem, stream, q, qid, p,
-                                    row_mask, nq, n, d, k, tp, thr, out_d,
-                                    out_i, out_c);
-    case kLinf:
-      return launch_form<List, kLinf>(lowd, grid, smem, stream, q, qid, p,
-                                      row_mask, nq, n, d, k, tp, thr, out_d,
-                                      out_i, out_c);
+template <int METRIC>
+cudaError_t launch_metric(int splits, int smem, cudaStream_t stream,
+                          const Args& a) {
+  switch (form_of(METRIC, a.d)) {
+    case 3:
+      return launch_form<METRIC, 3>(splits, smem, stream, a);
+    case 2:
+      return launch_form<METRIC, 2>(splits, smem, stream, a);
+    case 0:
+      return launch_form<METRIC, 0>(splits, smem, stream, a);
     default:
-      return cudaErrorInvalidValue;
+      return launch_form<METRIC, -1>(splits, smem, stream, a);
   }
 }
 
 }  // namespace
 
-// The C entry point; its contract is in launch.h.
+// The C entry points; their contract is in launch.h.
 extern "C" int pairwise_topk_launch(const float* q, const int* qid,
                                     const float* p,
                                     const unsigned char* row_mask, int nq,
-                                    int n, int d, int k, float thr, int metric,
-                                    float* out_d, int* out_i, int* out_c,
-                                    void* stream) {
+                                    int n, int d, int k, int splits, int span,
+                                    float thr, int metric, float* part_d,
+                                    int* part_i, int* part_c, void* stream) {
   if (nq <= 0) return cudaSuccess;
-  if (n <= 0 || d <= 0 || k <= 0) return cudaErrorInvalidValue;
-  const bool lowd = d <= kLowD;
-  int tp = kTileFloats / (d + 1);
-  tp = tp < 1 ? 1 : (tp > kMaxTile ? kMaxTile : tp);
-  const int smem = tp * (d + 1) * (int)sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;  // d > 8191
-  const dim3 grid((nq + kThreads - 1) / kThreads);
+  if (n <= 0 || d <= 0 || k <= 0 || splits <= 0 || span <= 0 ||
+      (long long)(splits - 1) * span >= n || (long long)splits * span < n)
+    return cudaErrorInvalidValue;
+  // float4 rows for L2 at d = 2, 3; (tp, d) floats (+ norms) otherwise
+  const bool vec = form_of(metric, d) > 0;
+  int tp = vec ? kTileFloats / 4 : kTileFloats / (d + 1);
+  tp = tp > kMaxTile ? kMaxTile : tp;
+  if (tp < 1) return cudaErrorInvalidValue;  // d > 8191
+  const int smem = vec ? tp * 16 : tp * (d + 1) * (int)sizeof(float);
+  const Args a{q, qid, p, row_mask, nq, n, d, k, span, tp, thr,
+               part_d, part_i, part_c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 8)
-    return launch_list<RegTopK<8>>(metric, lowd, grid, smem, s, q, qid, p,
-                                   row_mask, nq, n, d, k, tp, thr, out_d,
-                                   out_i, out_c);
-  if (k <= 32)
-    return launch_list<RegTopK<32>>(metric, lowd, grid, smem, s, q, qid, p,
-                                    row_mask, nq, n, d, k, tp, thr, out_d,
-                                    out_i, out_c);
-  return launch_list<GlobalTopK>(metric, lowd, grid, smem, s, q, qid, p,
-                                 row_mask, nq, n, d, k, tp, thr, out_d, out_i,
-                                 out_c);
+  switch (metric) {
+    case kL2:
+      return launch_metric<kL2>(splits, smem, s, a);
+    case kL1:
+      return launch_metric<kL1>(splits, smem, s, a);
+    case kLinf:
+      return launch_metric<kLinf>(splits, smem, s, a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int pairwise_topk_merge_launch(const float* part_d,
+                                          const int* part_i, const int* part_c,
+                                          const unsigned char* row_mask,
+                                          int nq, int splits, int k, int n,
+                                          float* out_d, int* out_i,
+                                          int* out_c, void* stream) {
+  if (nq <= 0) return cudaSuccess;
+  if (splits <= 0 || k <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((nq + kMergeThreads - 1) / kMergeThreads);
+  pairwise_merge_kernel<<<grid, kMergeThreads, 0, s>>>(
+      part_d, part_i, part_c, row_mask, nq, splits, k, n, out_d, out_i, out_c);
+  return cudaGetLastError();
+}
+
+extern "C" int pairwise_topk_rows_per_block(int d, int k, int metric) {
+  return rows_per_block(form_of(metric, d), k);
 }

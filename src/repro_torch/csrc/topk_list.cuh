@@ -14,15 +14,17 @@
 
 namespace repro_torch {
 
-// k <= KCAP: the list lives in registers.  Every index below is a
-// compile-time constant after unrolling, so nothing spills to local memory.
+// k <= KCAP: the list lives in registers (nvcc keeps an 8-entry list there;
+// a 32-entry one it puts in local memory).  init's pointers and stride are
+// those of MemTopK's, and unused here.
 template <int KCAP>
 struct RegTopK {
   float d[KCAP];
   int i[KCAP];
   float worst;
 
-  __device__ __forceinline__ void init(float*, int*, int k, int sentinel) {
+  __device__ __forceinline__ void init(float*, int*, int, int,
+                                       int sentinel) {
 #pragma unroll
     for (int j = 0; j < KCAP; ++j) {
       d[j] = CUDART_INF_F;
@@ -64,37 +66,51 @@ struct RegTopK {
   }
 };
 
-// k > the largest register list: the list lives in the output row itself
-// (global memory, cached in L1/L2), so any k the callers ask for works.
-struct GlobalTopK {
+// A list in memory: slot j of a list at d[j * stride], i[j * stride].  In
+// shared memory (stride = the block's threads, so a warp's lanes touch
+// consecutive words) it keeps the hot loop free of the list's registers;
+// in the output row itself (global memory, stride 1, cached in L1/L2) it
+// takes any k the callers ask for.  An insertion shifts only the entries
+// after the new one.
+struct MemTopK {
   float* d;
   int* i;
+  int stride;
   float worst;
 
-  __device__ __forceinline__ void init(float* od, int* oi, int k,
+  __device__ __forceinline__ void init(float* sd, int* si, int step, int k,
                                        int sentinel) {
-    d = od;
-    i = oi;
+    d = sd;
+    i = si;
+    stride = step;
     for (int j = 0; j < k; ++j) {
-      d[j] = CUDART_INF_F;
-      i[j] = sentinel;
+      d[j * stride] = CUDART_INF_F;
+      i[j * stride] = sentinel;
     }
     worst = CUDART_INF_F;
   }
 
+  // Caller guarantees dist < worst.
   __device__ __forceinline__ void push(float dist, int id, int k) {
     int p = k - 1;
-    while (p > 0 && d[p - 1] > dist) {
-      d[p] = d[p - 1];
-      i[p] = i[p - 1];
+    while (p > 0 && d[(p - 1) * stride] > dist) {
+      d[p * stride] = d[(p - 1) * stride];
+      i[p * stride] = i[(p - 1) * stride];
       --p;
     }
-    d[p] = dist;
-    i[p] = id;
-    worst = d[k - 1];
+    d[p * stride] = dist;
+    i[p * stride] = id;
+    worst = d[(k - 1) * stride];
   }
 
-  __device__ __forceinline__ void store(float*, int*, int) const {}
+  // Copies the list to (od, oi) unless it lives there already.
+  __device__ __forceinline__ void store(float* od, int* oi, int k) const {
+    if (od == d) return;
+    for (int j = 0; j < k; ++j) {
+      od[j] = d[j * stride];
+      oi[j] = i[j * stride];
+    }
+  }
 };
 
 }  // namespace repro_torch

@@ -3,20 +3,61 @@
 The kernel (``csrc/pairwise_topk.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/pairwise_topk.py::_kernel``: fused pairwise distances, a
 streaming exact top-k and an in-radius count, with the (Q, N) distance
-matrix never materialized.  Its plain PyTorch version is
-``repro_torch.kernels.ref.pairwise_topk_ref``; ``ops.topk_engine`` picks
-between the two by the tensors' device.
+matrix never materialized.  It runs in two passes: S blocks per query
+tile each scan one contiguous range of the points into a partial list,
+and a merge pass combines each row's S lists (``choose_splits`` picks S).
+Its plain PyTorch version is ``repro_torch.kernels.ref.pairwise_topk_ref``
+(and ``ref.merge_partial_topk`` for the merge); ``ops.topk_engine`` picks
+between kernel and plain version by the tensors' device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .build import count_launch, extension
 
-__all__ = ["pairwise_topk_cuda", "METRIC_IDS"]
+__all__ = ["pairwise_topk_cuda", "choose_splits", "split_plan", "METRIC_IDS"]
 
 METRIC_IDS = {"l2": 0, "l1": 1, "linf": 2}
+
+BLOCKS_PER_SM = 4  # blocks in flight per SM that the split aims for
+MIN_SPAN = 256  # fewest points a range of the split scans
+WORKSPACE_BYTES = 1 << 28  # most partial-list workspace one call takes
+
+
+def choose_splits(nq: int, n: int, k: int, sms: int, per_block: int):
+    """(S, span): the number of point ranges the first pass splits the N
+    points into, and the points per range (the last range may be shorter,
+    none is empty).  S fills ``BLOCKS_PER_SM`` blocks of ``per_block``
+    queries on each of ``sms`` SMs, with no range under ``MIN_SPAN``
+    points and the (S, Q, k) workspace under ``WORKSPACE_BYTES``."""
+    tiles = -(-nq // per_block)
+    s = max(1, -(-(BLOCKS_PER_SM * sms) // tiles))
+    s = min(s, max(1, n // MIN_SPAN),
+            max(1, WORKSPACE_BYTES // max(1, nq * k * 8)))
+    span = -(-n // s)
+    return -(-n // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_per_block(d: int, k: int, metric: str) -> int:
+    """Query rows one block of the first pass serves, as the kernel's own
+    launcher computes it."""
+    return extension().pairwise_topk_rows_per_block(d, k, METRIC_IDS[metric])
+
+
+def split_plan(nq: int, n: int, d: int, k: int, metric: str, device):
+    """(S, span) of a call with these shapes on the CUDA ``device``."""
+    return choose_splits(nq, n, k, _sm_count(device.index or 0),
+                         _rows_per_block(d, k, metric))
 
 
 def pairwise_topk_cuda(
@@ -75,7 +116,19 @@ def pairwise_topk_cuda(
         raise ValueError(f"pairwise_topk: needs n, d, k >= 1 (got {n}, {d}, {k})")
     if nq == 0:
         return out
-    extension().pairwise_topk(q, qid, p, row_mask, k, float(thr),
-                              METRIC_IDS[metric], od, oi, oc)
+    splits, span = split_plan(nq, n, d, k, metric, dev)
+    if splits == 1:  # the first pass writes the outputs
+        part = out
+    else:
+        part = (
+            torch.empty((splits, nq, k), dtype=torch.float32, device=dev),
+            torch.empty((splits, nq, k), dtype=torch.int32, device=dev),
+            torch.empty((splits, nq), dtype=torch.int32, device=dev),
+        )
+    ext = extension()
+    ext.pairwise_topk(q, qid, p, row_mask, k, splits, span, float(thr),
+                      METRIC_IDS[metric], *part)
+    if splits > 1:
+        ext.pairwise_topk_merge(*part, row_mask, n, od, oi, oc)
     count_launch("pairwise_topk")
     return out

@@ -15,7 +15,9 @@ Ties go to the lowest index (a stable sort, never ``torch.topk``), slots
 past the finite candidates are ``(inf, n)``, and the self index
 ``query_ids[i]`` (``n`` = none) is excluded.  The wrapper in ``ops.py``
 runs this for tensors on the CPU; on the card it is the yardstick the
-kernel is held against.
+kernel is held against.  ``merge_partial_topk`` is the plain version of
+the kernel's merge pass: per row, the partial lists of S contiguous point
+ranges combined into the list of the whole.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import math
 
 import torch
 
-__all__ = ["pairwise_topk_ref", "pairwise_dists", "sq_norm"]
+__all__ = ["pairwise_topk_ref", "merge_partial_topk", "pairwise_dists",
+           "sq_norm"]
 
 LOW_D = 8  # real feature dims at or below which L2 takes the diff form
 _CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}  # (rows, N) block per step
@@ -126,4 +129,50 @@ def pairwise_topk_ref(
             si = torch.cat([si, si.new_full(pad, n)], 1)
         od[r] = sd
         oi[r] = si
+    return out
+
+
+def merge_partial_topk(part_d, part_i, part_c, k: int, n: int, *,
+                       row_mask=None, out=None):
+    """Merge per-range partial results into whole-cloud ones.
+
+    ``part_d`` / ``part_i`` (S, Q, k') and ``part_c`` (S, Q) are the
+    outputs of S runs over contiguous, increasing ranges of the N points,
+    indices already global, each list ordered by (distance, index) with
+    empty slots (inf, n).  Per row the S lists are merged in range order
+    (a stable sort over the lists laid end to end, so the earlier range
+    wins a tie: the global lowest-index order) and the counts summed in
+    int32.  ``row_mask`` / ``out`` as in ``pairwise_topk_ref``.  Returns
+    ``out``.
+    """
+    s_, nq = part_c.shape
+    dev = part_d.device
+    if out is None:
+        out = (
+            torch.full((nq, k), math.inf, dtype=torch.float32, device=dev),
+            torch.full((nq, k), n, dtype=torch.int32, device=dev),
+            torch.zeros((nq,), dtype=torch.int32, device=dev),
+        )
+    od, oi, oc = out
+    rows = (
+        torch.arange(nq, device=dev)
+        if row_mask is None
+        else torch.nonzero(row_mask).flatten()
+    )
+    cand_d = part_d[:, rows].permute(1, 0, 2).reshape(rows.numel(), -1)
+    cand_i = part_i[:, rows].permute(1, 0, 2).reshape(rows.numel(), -1)
+    kk = min(k, cand_d.shape[1])
+    sd, arg = torch.sort(cand_d, dim=1, stable=True)
+    sd, arg = sd[:, :kk], arg[:, :kk]
+    si = torch.gather(cand_i, 1, arg)
+    fin = torch.isfinite(sd)
+    sd = torch.where(fin, sd, math.inf)
+    si = torch.where(fin, si, n).to(torch.int32)
+    if kk < k:
+        pad = (sd.shape[0], k - kk)
+        sd = torch.cat([sd, sd.new_full(pad, math.inf)], 1)
+        si = torch.cat([si, si.new_full(pad, n)], 1)
+    od[rows] = sd
+    oi[rows] = si
+    oc[rows] = part_c[:, rows].sum(0, dtype=torch.int32)
     return out

@@ -19,6 +19,7 @@ import torch
 from repro_torch.convert import grid_from_numpy
 from repro_torch.core.datasets import make_dataset
 from repro_torch.core.fixed_radius import (
+    cell_keys,
     fixed_radius_round,
     grid_round,
     grid_round_plain,
@@ -201,3 +202,227 @@ def test_cuda_grid_round_matches_plain(k):
             assert torch.equal(x, y)
         assert ta.item() == tb.item()
         assert math.isfinite(a[0][:, 0].min().item())
+
+
+# -- the cell order the wrapper hands the kernel ----------------------------
+
+
+def _odd_queries(pts, rng):
+    """Cloud rows, rows outside the grid's box (clamped to its edge cells),
+    and rows with a non-finite coordinate (that axis counts as 0)."""
+    d = pts.shape[1]
+    q = pts[rng.choice(len(pts), 200, replace=False)].copy()
+    lo, hi = pts.min(0), pts.max(0)
+    out = np.stack([lo - 5.0, hi + 5.0, (lo + hi) / 2 + (hi - lo) * 3.0,
+                    lo - 1e-3]).astype(np.float32)
+    bad = np.tile(pts[:1], (6, 1))
+    bad[0, 0] = np.nan
+    bad[1, d - 1] = np.inf
+    bad[2, 0] = -np.inf
+    bad[3, :] = np.nan
+    bad[4, d - 1] = -np.inf
+    bad[5, 0] = np.inf
+    return np.concatenate([q, out, bad]).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud,radius_frac", [
+    ("kitti", 1 / 50), ("porto", 1 / 80), ("uniform", 1 / 7), ("iono", 1 / 3),
+])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cell_keys_are_the_reference_cells(cloud, radius_frac, fused):
+    """The key the wrapper sorts by decodes to the cell the reference's
+    ``cell_coords_of`` gives each query (non-finite coordinates as 0,
+    out-of-box queries clamped); in fused mode resolved rows sort last."""
+    import jax.numpy as jnp
+    from repro.core.grid import cell_coords_of as jax_cells
+
+    rng = np.random.default_rng(len(cloud))
+    pts = make_dataset(cloud, 1500, seed=4)
+    ext = float((pts.max(0) - pts.min(0)).max())
+    g = build_grid(pts, ext * radius_frac)
+    q = _odd_queries(pts, rng)
+    unres = (torch.from_numpy((np.arange(len(q)) % 4 != 0).astype(np.uint8))
+             if fused else None)
+    key = cell_keys(torch.from_numpy(q), g, unres).numpy()
+    cells = math.prod(g.res)
+    if fused:
+        resolved = unres.numpy() == 0
+        assert (key[resolved] >= cells).all() and (key[~resolved] < cells).all()
+        key = np.where(resolved, key - cells, key)
+    coords = np.zeros((len(q), len(g.res)), np.int64)
+    rem = key.copy()
+    for a in range(len(g.res) - 1, -1, -1):
+        coords[:, a] = rem % g.res[a]
+        rem //= g.res[a]
+    assert (rem == 0).all()
+    want = np.asarray(jax_cells(
+        jnp.where(jnp.isfinite(q), q, 0.0), np.asarray(g.origin),
+        np.asarray(g.inv_cell), np.asarray(g.res, np.int32)))
+    assert np.array_equal(coords, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("radius", [0.03, 0.3])
+def test_grid_round_plain_is_order_free(fused, radius):
+    """A round on a row permutation of the queries gives every row the same
+    outputs (and the same test count): the cell order the kernel is handed
+    never changes an answer."""
+    rng = np.random.default_rng(int(radius * 100) + fused)
+    pts = make_dataset("kitti", 1200, seed=6)
+    p = torch.from_numpy(pts)
+    g = build_grid(pts, radius)
+    q = torch.from_numpy(_odd_queries(pts, rng))
+    m = q.shape[0]
+    qid = torch.from_numpy(
+        np.where(np.arange(m) < 100, rng.choice(1200, m), 1200)
+        .astype(np.int32))
+    perm = torch.from_numpy(rng.permutation(m))
+    k = 7
+    unres0 = torch.from_numpy((np.arange(m) % 3 != 0).astype(np.uint8))
+    runs = []
+    for order in (torch.arange(m), perm):
+        out = (torch.full((m, k), -1.0),
+               torch.full((m, k), -1, dtype=torch.int32),
+               torch.full((m,), -1, dtype=torch.int32))
+        tests = torch.zeros(1, dtype=torch.int64)
+        kw = {}
+        if fused:
+            kw = dict(unres=unres0[order].clone(),
+                      res_round=torch.full((m,), -1, dtype=torch.int32), t=2,
+                      executed=torch.zeros(1, dtype=torch.int32))
+        grid_round_plain(p, g, q[order].contiguous(), qid[order].contiguous(),
+                         float(np.float32(radius) ** 2), k, out=out,
+                         tests=tests, **kw)
+        inv = torch.argsort(order)
+        state = [t[inv] for t in out]
+        if fused:
+            state += [kw["unres"][inv], kw["res_round"][inv]]
+        runs.append((state, tests.item()))
+    (a, ta), (b, tb) = runs
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert ta == tb > 0
+
+
+# -- on the card: both designs, fused mode, and an unsorted permutation -----
+
+
+def _card_round(fn, p, g, q, qid, r2, k, fused_unres=None, **kw):
+    dev = q.device
+    m = q.shape[0]
+    out = (torch.full((m, k), -1.0, device=dev),
+           torch.full((m, k), -1, dtype=torch.int32, device=dev),
+           torch.full((m,), -1, dtype=torch.int32, device=dev))
+    tests = torch.zeros(1, dtype=torch.int64, device=dev)
+    extra = {}
+    if fused_unres is not None:
+        extra = dict(unres=fused_unres.clone(),
+                     res_round=torch.full((m,), -1, dtype=torch.int32,
+                                          device=dev), t=4,
+                     executed=torch.zeros(1, dtype=torch.int32, device=dev))
+    fn(p, g, q, qid, r2, k, out=out, tests=tests, **extra, **kw)
+    return list(out) + [tests] + [extra[x] for x in ("unres", "res_round",
+                                                      "executed") if extra]
+
+
+@needs_card
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("k", [8, 32, 100])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_grid_round_designs_match_plain(coarse, k, fused):
+    """The fine (one thread a query) and the coarse (shared-memory tiles)
+    designs against the plain version, non-fused and fused, on queries
+    that are not in cell order."""
+    from repro_torch.core.fixed_radius import coarse_design
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k + 2 * coarse + fused)
+    pts = make_dataset("kitti", 1 << 15, seed=1)
+    p = torch.from_numpy(pts).to(dev)
+    r = 40.0 if coarse else 0.05
+    g = build_grid(pts, r, device_points=p)
+    assert coarse_design(g) == coarse
+    m = 3000
+    rows = rng.permutation(len(pts))[:m]
+    qn = pts[rows] + np.float32(1e-4)
+    qn[:3] = _odd_queries(pts, rng)[-3:]  # non-finite rows
+    q = torch.from_numpy(qn).to(dev)
+    qid = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    unres = (torch.from_numpy((rng.random(m) < 0.6).astype(np.uint8)).to(dev)
+             if fused else None)
+    r2 = float(np.float32(r) ** 2)
+    a = _card_round(grid_round, p, g, q, qid, r2, k, unres)
+    b = _card_round(grid_round_plain, p, g, q, qid, r2, k, unres)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@needs_card
+@pytest.mark.parametrize("coarse", [False, True])
+def test_cuda_grid_round_ignores_the_order_it_is_handed(coarse):
+    """The coarse design recomputes every query's cell: a random
+    permutation in place of the sorted one changes no output.  The fine
+    design works on the rows in their own order and refuses one."""
+    from repro_torch.core.fixed_radius import coarse_design
+    from repro_torch.kernels.build import extension
+
+    dev = torch.device("cuda")
+    pts = make_dataset("kitti", 1 << 14, seed=2)
+    p = torch.from_numpy(pts).to(dev)
+    r = 40.0 if coarse else 0.05
+    g = build_grid(pts, r, device_points=p)
+    m, k = 2000, 8
+    q = p[:m].contiguous()
+    qid = torch.arange(m, dtype=torch.int32, device=dev)
+    r2 = float(np.float32(r) ** 2)
+    want = _card_round(grid_round_plain, p, g, q, qid, r2, k)
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(0)).to(dev)
+    out = [torch.empty_like(t) for t in want[:3]]
+    tests = torch.zeros(1, dtype=torch.int64, device=dev)
+    assert coarse_design(g) == coarse
+    launch = lambda: extension().grid_round(  # noqa: E731
+        p, g.buckets, g.point_cells, g.origin, g.inv_cell, g.res_arr, q, qid,
+        perm, k, r2, coarse, *out, None, None, 0, tests, None)
+    if not coarse:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch()
+        return
+    launch()
+    torch.cuda.synchronize()
+    for x, y in zip(out + [tests], want):
+        assert torch.equal(x, y)
+
+
+@needs_card
+@pytest.mark.parametrize("cloud,d,frac,coarse", [
+    ("porto", 2, 1 / 200, False), ("porto", 2, 1 / 20, True),
+    ("kitti", 1, 1 / 100, False), ("kitti", 1, 1 / 2000, False),
+    ("kitti", 1, 1 / 10, True),
+])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_grid_round_low_d_matches_plain(cloud, d, frac, coarse, fused):
+    """The d = 1 and d = 2 instantiations of both designs (the heavy-tailed
+    2-D cloud and a 1-D cut of the 3-D one, each on a fine and a coarse
+    grid)."""
+    from repro_torch.core.fixed_radius import coarse_design
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d)
+    pts = np.ascontiguousarray(make_dataset(cloud, 1 << 14, seed=3)[:, :d])
+    p = torch.from_numpy(pts).to(dev)
+    r = float((pts.max(0) - pts.min(0)).max()) * frac
+    g = build_grid(pts, r, device_points=p)
+    assert coarse_design(g) == coarse
+    m = 2000
+    rows = rng.permutation(len(pts))[:m]
+    q = p[torch.from_numpy(rows).to(dev)].contiguous()
+    qid = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    unres = (torch.from_numpy((rng.random(m) < 0.7).astype(np.uint8)).to(dev)
+             if fused else None)
+    r2 = float(np.float32(r) ** 2)
+    a = _card_round(grid_round, p, g, q, qid, r2, 8, unres)
+    b = _card_round(grid_round_plain, p, g, q, qid, r2, 8, unres)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

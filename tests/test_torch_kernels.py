@@ -19,8 +19,13 @@ import torch
 from repro_torch.core.brute import brute_knn_engine
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.ops import pairwise_topk, topk_engine
-from repro_torch.kernels.pairwise_topk import pairwise_topk_cuda
-from repro_torch.kernels.ref import pairwise_topk_ref
+from repro_torch.kernels.pairwise_topk import (
+    MIN_SPAN,
+    WORKSPACE_BYTES,
+    choose_splits,
+    pairwise_topk_cuda,
+)
+from repro_torch.kernels.ref import merge_partial_topk, pairwise_topk_ref
 
 torch.set_num_threads(1)
 
@@ -207,3 +212,150 @@ def test_cuda_kernel_matches_plain(d, metric, k, radius, selfids):
         assert torch.equal(got[1], want[1])
     else:
         torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+
+
+# -- the split-N algorithm: partial lists over point ranges, then a merge ---
+
+
+def _split_topk(q, p, k, bounds, *, thr=math.inf, qid=None, metric="l2",
+                row_mask=None):
+    """The kernel's first pass in plain PyTorch: ``pairwise_topk_ref`` on
+    each range [lo, hi) of the points, indices made global, sentinel n."""
+    n = p.shape[0]
+    nq = q.shape[0]
+    qid = torch.full((nq,), n, dtype=torch.int32) if qid is None else qid
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        local = torch.where((qid >= lo) & (qid < hi), qid - lo, hi - lo)
+        d, i, c = pairwise_topk_ref(q, p[lo:hi], k, radius2=thr,
+                                    query_ids=local.to(torch.int32),
+                                    metric=metric, row_mask=row_mask)
+        i = torch.where(i < hi - lo, i + lo, n).to(torch.int32)
+        parts.append((d, i, c))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+SPLIT_CASES = [
+    # (tag, n, d, k, metric, radius2, bounds of the split)
+    ("dup ties across boundaries", 400, 3, 9, "l2", 0.8,
+     (0, 100, 101, 250, 400)),
+    ("split shorter than k", 300, 2, 12, "l2", math.inf, (0, 5, 150, 157, 300)),
+    ("one split", 200, 3, 6, "l2", 0.5, (0, 200)),
+    ("l1 self ids", 360, 3, 7, "l1", 1.0, (0, 90, 180, 270, 360)),
+    ("linf many splits", 256, 2, 4, "linf", 0.3, tuple(range(0, 257, 16))),
+    ("k 300", 900, 3, 300, "l2", 1.5, (0, 300, 450, 900)),
+]
+
+
+@pytest.mark.parametrize("tag,n,d,k,metric,thr,bounds", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("masked", [False, True])
+def test_merge_of_splits_equals_unsplit(tag, n, d, k, metric, thr, bounds,
+                                        masked):
+    """Partial lists over contiguous ranges, merged in range order, are the
+    unsplit list bitwise: values, indices (lowest first on ties, also
+    across a boundary), counts, and untouched unmasked rows."""
+    rng = np.random.default_rng(n + k + d)
+    p = rng.normal(size=(n, d)).astype(np.float32)
+    # exact duplicates of point 3 on both sides of every boundary
+    for b in bounds[1:-1]:
+        p[b - 1] = p[3]
+        p[b] = p[3]
+    p = torch.from_numpy(p)
+    nq = 37
+    ids = rng.choice(n, nq, replace=False)
+    ids[0], ids[1] = bounds[1] - 1, bounds[-2]  # self ids at both sides
+    qid = torch.from_numpy(ids.astype(np.int32))
+    q = p[qid.long()].clone()
+    q[5:] += torch.from_numpy(rng.normal(scale=0.05, size=(nq - 5, d))
+                              .astype(np.float32))
+    q[7] = p[3]  # a query whose nearest points tie across every boundary
+    mask = (torch.from_numpy((np.arange(nq) % 3 != 1).astype(np.uint8))
+            if masked else None)
+    want = tuple(t.clone() for t in (
+        torch.full((nq, k), -1.0), torch.full((nq, k), -1, dtype=torch.int32),
+        torch.full((nq,), -1, dtype=torch.int32)))
+    pairwise_topk_ref(q, p, k, radius2=thr, query_ids=qid, metric=metric,
+                      row_mask=mask, out=want)
+    part = _split_topk(q, p, k, bounds, thr=thr, qid=qid, metric=metric,
+                       row_mask=mask)
+    got = tuple(t.clone() for t in (
+        torch.full((nq, k), -1.0), torch.full((nq, k), -1, dtype=torch.int32),
+        torch.full((nq,), -1, dtype=torch.int32)))
+    merge_partial_topk(*part, k, n, row_mask=mask, out=got)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not (got[1] == qid[:, None]).any()
+    if masked:
+        assert (got[2][mask == 0] == -1).all()
+
+
+def test_merge_keeps_lowest_index_on_cross_range_ties():
+    """Every point equidistant from the query: the merged list is the k
+    lowest indices, whatever range each came from."""
+    p = torch.zeros((50, 2))
+    q = torch.ones((1, 2))
+    bounds = (0, 7, 8, 30, 50)
+    part = _split_topk(q, p, 10, bounds)
+    d, i, c = merge_partial_topk(*part, 10, 50)
+    assert torch.equal(i[0], torch.arange(10, dtype=torch.int32))
+    assert (d == 2.0).all() and c.item() == 50
+
+
+@pytest.mark.parametrize("nq,n,k,per_block", [
+    # per_block: the first pass's rows a block (16 for L2 at d = 2, 3 and
+    # k <= 32, 4 for the other forms, 128 for k > 32)
+    (100, 1 << 20, 5, 16), (4096, 1 << 20, 32, 16), (512, 1 << 20, 300, 128),
+    (777, 5000, 8, 4), (1, 3, 1, 16), (1 << 20, 1 << 20, 8, 16),
+    (4096, 1 << 20, 4096, 128), (512, 1 << 16, 64, 128),
+])
+def test_choose_splits_covers_the_points(nq, n, k, per_block):
+    """Ranges tile [0, N) with none empty; the sampler's call fans out to
+    several blocks per SM; the workspace stays within its budget."""
+    sms = 132
+    s, span = choose_splits(nq, n, k, sms, per_block)
+    assert s >= 1 and (s - 1) * span < n <= s * span
+    tiles = -(-nq // per_block)
+    if s > 1:
+        assert s * nq * k * 8 <= WORKSPACE_BYTES
+        assert span >= MIN_SPAN
+    if (nq, n) == (100, 1 << 20):
+        assert tiles * s >= 4 * sms
+    if tiles >= 4 * sms:
+        assert s == 1
+
+
+@needs_card
+@pytest.mark.parametrize("nq,n,k,thr", [
+    (100, 200_000, 5, math.inf), (300, 60_000, 300, 0.5), (777, 5000, 32, 0.4),
+])
+def test_cuda_split_kernel_matches_plain(nq, n, k, thr):
+    """The split first pass and the merge kernel against the plain version
+    on the card, with duplicates across the kernel's own range bounds and
+    an all-zero row_mask that must leave every output untouched."""
+    from repro_torch.kernels.pairwise_topk import split_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + k)
+    p = rng.normal(size=(n, 3)).astype(np.float32)
+    s, span = split_plan(nq, n, 3, k, "l2", dev)
+    assert s > 1
+    for b in range(span, n, span):
+        p[b - 1] = p[0]
+        p[b] = p[0]
+    p = torch.from_numpy(p).to(dev)
+    q = p[:nq].clone()
+    qid = torch.arange(nq, dtype=torch.int32, device=dev)
+    got = pairwise_topk_cuda(q, qid, p, thr, k=k)
+    want = pairwise_topk_ref(q, p, k, radius2=thr, query_ids=qid)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    zero = torch.zeros(nq, dtype=torch.uint8, device=dev)
+    out = (torch.full((nq, k), -1.0, device=dev),
+           torch.full((nq, k), -1, dtype=torch.int32, device=dev),
+           torch.full((nq,), -1, dtype=torch.int32, device=dev))
+    pairwise_topk_cuda(q, qid, p, thr, k=k, row_mask=zero, out=out)
+    torch.cuda.synchronize()
+    for o in out:
+        assert (o == -1).all()
