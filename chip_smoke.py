@@ -5,8 +5,10 @@
 
 Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 ``torch.utils.cpp_extension.load`` call), holds each against its plain
-PyTorch version on the card, then drives the port's two entry points at
-full width through the user API and checks what comes out:
+PyTorch version on the card, then drives the port's entry points (the
+trueknn, brute and fixed_radius backends, the planner's generic routes,
+all-pairs self-queries and the graph workloads) at full width through the
+user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -43,12 +45,30 @@ full width through the user API and checks what comes out:
 8. ``grid_round``'s two designs timed on every scheduled grid of kitti,
    porto, road and uniform (the fused loop's rounds, and every row on
    the grids between fine and collapsed), held bitwise equal to each
-   other, against the design the wrapper picks; then the kernels line and
-   the device line.
+   other, against the design the wrapper picks;
+9. ``build_index(kitti 2^20, backend="fixed_radius", radius=r)`` with r
+   phase 4's median 8th-NN distance: two ``HybridSpec(8, r)`` self-query
+   batches (the second on the cached grid), ``KnnSpec(8)`` at the cfg
+   radius equal to them bitwise, 4096 rows against the brute backend as in
+   phase 4, and ``RangeSpec(r)`` on phase 5's rows, its CSR bitwise equal
+   to phase 5's;
+10. the planner's generic routes on 4096 rows, each against the brute
+   backend's native answer: cosine ``KnnSpec(8)`` through the ``l2_view``
+   companion of phase 4's trueknn index (to the reference tests' TOL),
+   L1 ``KnnSpec(8)`` and L∞ ``RangeSpec`` through ``brute_metric``
+   (bitwise), cosine ``HybridSpec`` through phase 9's index's view (TOL);
+11. ``AllPairsSpec(8)`` on trueknn, equal to phase 4's batch 2 bitwise,
+   chunked (4 blocks) equal to the whole batch, ``AllPairsSpec`` range at
+   r on trueknn and on fixed_radius (offsets and distances bitwise equal,
+   indices equal up to the order of neighbors at equal distance, which
+   follows each backend's grid), the
+   counted range's two rounds timed at full width, ``build_knn_graph`` and
+   ``dbscan`` (the union-find's host seconds apart from the device part);
+   then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4 and 5) and read just
-after; a kernel of that path that was not launched fails the run.
+are zeroed just before each entry point (phases 4, 5 and 9-11) and read
+just after; a kernel of that path that was not launched fails the run.
 """
 
 from __future__ import annotations
@@ -77,6 +97,7 @@ GRID_ROWS = 16384
 DEGEN_ROWS = 2048  # 8 blocks of the coarse design at k = 8
 SEED = 0
 FINE_TEST_BUDGET = 1 << 36  # most tests phase 8 gives the fine design
+CHUNK_ROWS = 1 << 18  # phase 11's chunked all-pairs: 4 blocks of the cloud
 
 
 def check(cond, msg):
@@ -418,20 +439,27 @@ def phase_main(dev, kitti_np, rng):
     brute = build_index(kitti_np, backend="brute", device=dev)
     ref = brute.query(kitti_np[rows], KnnSpec(9))
     bd, bi = strip_self_knn(ref.dists, ref.idxs, rows, 8, N_MAIN)
-    check(np.array_equal(b2.dists[rows], bd), "trueknn vs brute distances")
+    hold_rows("trueknn", b2.dists[rows], b2.idxs[rows], bd, bi, kitti_np,
+              rows)
+    radius = float(np.median(b2.dists[:, 7]))
+    return index, batches, counts, radius
+
+
+def hold_rows(tag, gd, gi, bd, bi, pts, rows):
+    """Self-query rows against the brute backend's: distances bitwise,
+    index sets equal or tied by distance."""
+    check(np.array_equal(gd, bd), f"{tag} vs brute distances")
     same_set = 0
-    for r in range(ROWS):
-        a, b = b2.idxs[rows[r]], bi[r]
+    for r in range(len(rows)):
+        a, b = gi[r][gi[r] < len(pts)], bi[r][bi[r] < len(pts)]
         if set(a.tolist()) == set(b.tolist()):
             same_set += 1
             continue
-        pa = np.sort(((kitti_np[a] - kitti_np[rows[r]]) ** 2).sum(-1))
-        pb = np.sort(((kitti_np[b] - kitti_np[rows[r]]) ** 2).sum(-1))
+        pa = np.sort(((pts[a] - pts[rows[r]]) ** 2).sum(-1))
+        pb = np.sort(((pts[b] - pts[rows[r]]) ** 2).sum(-1))
         np.testing.assert_allclose(pa, pb, rtol=1e-6)  # tied distances
-    log(f"  {ROWS} rows vs brute backend: distances bitwise, index sets equal "
-        f"on {same_set} rows, the rest tied by distance")
-    radius = float(np.median(b2.dists[:, 7]))
-    return index, b1, counts, radius
+    log(f"  {len(rows)} rows vs brute backend: distances bitwise, index "
+        f"sets equal on {same_set} rows, the rest tied by distance")
 
 
 # -- phase 5: brute range -----------------------------------------------------
@@ -483,7 +511,7 @@ def phase_range(dev, kitti_np, radius, rng):
     log(f"  CSR equals the plain version's (offsets and sets exact, "
         f"distances {'bitwise' if bitwise else 'within rtol 1e-6'})")
     err = float(np.abs(res.dists - want.dists).max()) if len(res.dists) else 0.0
-    return counts, q, qid, thr, err
+    return counts, q, qid, thr, err, (rows, res)
 
 
 # -- phase 6: the heavy-tailed 2-D cloud ------------------------------------
@@ -772,6 +800,319 @@ def phase_designs(dev, kitti):
                          "fine_ms": fine, "coarse_ms": coarse}
     return summary
 
+# -- phases 9-11: the other backends, routes and workloads ----------------
+
+
+TOL = 1e-4  # the reference's tolerance for float32 engines vs an oracle
+
+
+def counted(tag, fn, tally, need=("grid_round",)):
+    """Run one entry point with the launch counts zeroed just before and
+    read just after; fails if a kernel of its path was not launched.
+    Returns (result, host seconds to a device sync, counts) and adds the
+    counts to ``tally``."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for name in need:
+        check(counts[name] > 0, f"{tag}: never launched {name}")
+    for name, c in counts.items():
+        tally[name] += c
+    return out, wall, counts
+
+
+def same_arrays(tag, a, b, keys):
+    for key in keys:
+        check(np.array_equal(getattr(a, key), getattr(b, key)),
+              f"{tag}: {key} differs")
+
+
+def same_csr_up_to_ties(tag, a, b):
+    """Two range CSRs: offsets and dists bitwise, idxs bitwise once each
+    row is ordered by (dist, idx).  A grid round orders neighbors at equal
+    distance by their slot in its grid (the reference's rule), so two
+    grids of other shapes may list tied neighbors in another order.
+    Returns the number of rows whose idxs differ before that ordering."""
+    same_arrays(tag, a, b, ("offsets", "dists"))
+    rows = np.repeat(np.arange(a.n_queries), a.counts)
+    ia = a.idxs[np.lexsort((a.idxs, a.dists, rows))]
+    ib = b.idxs[np.lexsort((b.idxs, b.dists, rows))]
+    check(np.array_equal(ia, ib), f"{tag}: idxs differ beyond tie order")
+    return len(np.unique(rows[a.idxs != b.idxs]))
+
+
+def counted_k(res):
+    """The k of a counted range's last round (``range_from_counted_round``:
+    32, then the next power of two of the fullest ball)."""
+    top = int(res.counts.max()) if res.n_queries else 0
+    return 32 if top <= 32 else 1 << (top - 1).bit_length()
+
+
+def phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally):
+    from repro_torch import HybridSpec, KnnSpec, RangeSpec, build_index
+    from repro_torch.core.result import strip_self_knn
+
+    index = build_index(kitti_np, backend="fixed_radius", radius=radius,
+                        device=dev)
+    hyb = []
+    for b in (1, 2):
+        res, wall, counts = counted(
+            f"fixed_radius hybrid batch {b}",
+            lambda: index.query(None, HybridSpec(8, radius)), tally)
+        hyb.append(res)
+        log(f"  HybridSpec(8, {radius:.6g}) self-query batch {b}: "
+            f"grid_builds={res.timings['grid_builds']} grid_cache_hits="
+            f"{res.timings['grid_cache_hits']} grid={res.rounds[0].grid_res} "
+            f"cap={res.rounds[0].grid_cap} n_tests={res.n_tests} rows with k "
+            f"in the ball {int((res.found >= 8).sum())} wall_s={wall:.4f} "
+            f"launches {counts}")
+    h1, h2 = hyb
+    check(h1.timings["grid_builds"] == 1, "batch 1 built the grid")
+    check(h2.timings["grid_builds"] == 0
+          and h2.timings["grid_cache_hits"] == 1, "batch 2 hit the grid")
+    same_arrays("fixed_radius batches", h1, h2, ("dists", "idxs", "found"))
+    check(h2.dists.shape == (N_MAIN, 8), "answer shape")
+    check(not (h2.idxs == np.arange(N_MAIN)[:, None]).any(), "self excluded")
+    knn, wall, _ = counted("fixed_radius knn",
+                           lambda: index.query(None, KnnSpec(8)), tally)
+    same_arrays("KnnSpec(8) with the cfg radius vs the hybrid", knn, h2,
+                ("dists", "idxs", "found"))
+    log(f"  KnnSpec(8) at the cfg radius equals the hybrid bitwise "
+        f"(wall_s={wall:.4f})")
+
+    rows = np.sort(rng.choice(N_MAIN, ROWS, replace=False))
+    brute = build_index(kitti_np, backend="brute", device=dev)
+    ref = brute.query(kitti_np[rows], HybridSpec(9, radius))
+    bd, bi = strip_self_knn(ref.dists, ref.idxs, rows, 8, N_MAIN)
+    hold_rows("fixed_radius", h2.dists[rows], h2.idxs[rows], bd, bi,
+              kitti_np, rows)
+
+    rows5, want = range5
+    got, wall, counts = counted(
+        "fixed_radius range",
+        lambda: index.query(kitti_np[rows5], RangeSpec(radius)), tally)
+    same_arrays("fixed_radius RangeSpec vs phase 5's brute CSR", got, want,
+                ("offsets", "idxs", "dists"))
+    log(f"  RangeSpec({radius:.6g}) on phase 5's {ROWS} rows: CSR bitwise "
+        f"equal to the brute backend's (nnz={len(got.idxs)}, passes="
+        f"{got.timings['count_rounds']}, counted-round k={counted_k(got)}, "
+        f"wall_s={wall:.4f}, launches {counts})")
+    return index
+
+
+def _tied_or_equal(tag, got, want, q, pts, metric):
+    """Index rows equal, or the two sets' float64 distances within TOL."""
+    from repro_torch.api import get_metric
+
+    m = get_metric(metric)
+    same = 0
+    for r in range(q.shape[0]):
+        if np.array_equal(got.idxs[r], want.idxs[r]):
+            same += 1
+            continue
+        for ids in (got.idxs[r], want.idxs[r]):
+            check(np.all(ids < N_MAIN), f"{tag}: row {r} short")
+        da = np.sort(m.pairwise(q[r:r + 1], pts[got.idxs[r]])[0])
+        db = np.sort(m.pairwise(q[r:r + 1], pts[want.idxs[r]])[0])
+        np.testing.assert_allclose(da, db, rtol=TOL, atol=TOL)
+    return same
+
+
+def _hybrid_within_tol(tag, got, knn_d, r):
+    """The reference's hybrid check (``tests/test_query.py``): against the
+    exact kNN distances, every certainly-inside neighbor is found, no
+    certainly-outside one is, and the finite distances agree to TOL."""
+    srt = np.sort(knn_d, 1)
+    nf = np.isfinite(got.dists).sum(1)
+    lo = (srt <= r - TOL).sum(1)
+    hi = (srt <= r + TOL).sum(1)
+    check(bool(np.all((lo <= nf) & (nf <= hi))), f"{tag}: ball counts")
+    fin = np.arange(srt.shape[1])[None, :] < nf[:, None]
+    np.testing.assert_allclose(np.sort(got.dists, 1)[fin], srt[fin],
+                               rtol=TOL, atol=TOL)
+
+
+def phase_routes(dev, kitti_np, tk_index, fr_index, rng, tally):
+    """The generic routes on 4096 rows, each held against the brute
+    backend's native answer."""
+    from repro_torch import HybridSpec, KnnSpec, RangeSpec, build_index
+
+    rows = np.sort(rng.choice(N_MAIN, ROWS, replace=False))
+    q = kitti_np[rows]
+    brute = build_index(kitti_np, backend="brute", device=dev)
+    cos_ref = brute.query(q, KnnSpec(8), metric="cosine")
+    r_cos = float(np.median(cos_ref.dists[:, 7]))
+    linf_knn = brute.query(q, KnnSpec(8), metric="linf")
+    r_inf = float(np.median(linf_knn.dists[:, 7]))
+    both = ("grid_round", "pairwise_topk")
+    routes = (
+        ("trueknn", tk_index, "cosine", KnnSpec(8), "l2_view", both),
+        ("trueknn", tk_index, "l1", KnnSpec(8), "brute_metric",
+         ("pairwise_topk",)),
+        ("trueknn", tk_index, "linf", RangeSpec(r_inf), "brute_metric",
+         ("pairwise_topk",)),
+        ("fixed_radius", fr_index, "cosine", HybridSpec(8, r_cos), "l2_view",
+         ("grid_round",)),
+    )
+    secs = {}
+    for backend, index, metric, spec, route, need in routes:
+        tag = f"{backend} {metric} {spec.kind}"
+        res, wall, counts = counted(
+            tag, lambda: index.query(q, spec, metric=metric), tally, need)
+        check(res.timings["plan"] == route, f"{tag}: plan "
+              f"{res.timings['plan']!r}, not {route!r}")
+        check(res.backend == backend and res.metric == metric,
+              f"{tag}: backend/metric tags")
+        want = brute.query(q, spec, metric=metric)
+        if metric == "l1":
+            same_arrays(tag, res, want, ("dists", "idxs"))
+            how = "bitwise"
+        elif metric == "linf":
+            same_arrays(tag, res, want, ("offsets", "idxs", "dists"))
+            how = (f"CSR bitwise, nnz={len(res.idxs)}, passes="
+                   f"{res.timings['count_rounds']}, counted-round k="
+                   f"{counted_k(res)}")
+        elif isinstance(spec, KnnSpec):
+            np.testing.assert_allclose(res.dists, want.dists, rtol=TOL,
+                                       atol=TOL)
+            same = _tied_or_equal(tag, res, want, q, kitti_np, metric)
+            how = (f"distances to {TOL:g}, index rows equal on {same}, the "
+                   f"rest tied to {TOL:g}")
+        else:
+            _hybrid_within_tol(tag, res, cos_ref.dists, spec.radius)
+            how = (f"ball counts and distances to {TOL:g} "
+                   f"({int(np.isfinite(res.dists).sum())} neighbors)")
+        secs[f"{tag} ({route})"] = wall
+        log(f"  {tag}: plan={route} backend={backend}, {how} vs brute's "
+            f"native {metric}; wall_s={wall:.4f} launches {counts}")
+    return secs
+
+
+def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
+    """All-pairs self-queries on both grid backends, the counted range's
+    rounds timed at full width, then the kNN graph and DBSCAN."""
+    import torch
+
+    from repro_torch import AllPairsSpec
+    from repro_torch.core.fixed_radius import grid_round
+    from repro_torch.workloads import build_knn_graph, dbscan
+
+    whole, wall, counts = counted(
+        "all_pairs knn", lambda: tk_index.query(None, AllPairsSpec(8)),
+        tally)
+    check(whole.timings["plan"] == "all_pairs", "all_pairs tag")
+    same_arrays("AllPairsSpec(8) vs phase 4's self-query", whole, b2,
+                ("dists", "idxs"))
+    log(f"  AllPairsSpec(8) on trueknn: equal to phase 4's batch 2 bitwise "
+        f"(inner plan {whole.timings.get('plan_inner')}); wall_s={wall:.4f} "
+        f"launches {counts}")
+    chunk = CHUNK_ROWS
+    part, wall, counts = counted(
+        "all_pairs chunked",
+        lambda: tk_index.query(None, AllPairsSpec(8, chunk_rows=chunk)),
+        tally)
+    check(part.timings["plan"] == f"all_pairs/chunked={chunk}", "chunk tag")
+    same_arrays("chunked all-pairs vs whole", part, whole, ("dists", "idxs"))
+    log(f"  AllPairsSpec(8, chunk_rows={chunk}): {part.timings['chunks']} "
+        f"chunks, equal to the whole batch bitwise; wall_s={wall:.4f} "
+        f"launches {counts}")
+
+    spec = AllPairsSpec(mode="range", radius=radius)
+    csr = {}
+    for backend, index in (("trueknn", tk_index), ("fixed_radius", fr_index)):
+        res, wall, counts = counted(f"all_pairs range {backend}",
+                                    lambda: index.query(None, spec), tally)
+        check(res.backend == backend and res.timings["plan"] == "all_pairs",
+              f"{backend}: all_pairs range tags")
+        csr[backend] = res
+        log(f"  AllPairsSpec(range, {radius:.6g}) on {backend}: nnz="
+            f"{len(res.idxs)} max row={int(res.counts.max())} mean "
+            f"{float(res.counts.mean()):.3f} passes="
+            f"{res.timings['count_rounds']} counted-round k="
+            f"{counted_k(res)} wall_s={wall:.4f} launches {counts}")
+    reordered = same_csr_up_to_ties("range all-pairs trueknn vs "
+                                    "fixed_radius", csr["trueknn"],
+                                    csr["fixed_radius"])
+    log(f"  the two CSRs: offsets and dists bitwise equal, idxs bitwise "
+        f"equal on all but {reordered} rows, whose neighbors at equal "
+        f"distance come in the order of each backend's grid (equal once "
+        f"each row is ordered by (dist, idx))")
+
+    # the counted range's two rounds alone, at full width (k > 32 keeps
+    # its lists in the output rows)
+    pts = fr_index._pts_t
+    n, d = pts.shape
+    grid, _ = fr_index._grid_for(radius)
+    qid = torch.arange(n, dtype=torch.int32, device=dev)
+    r2 = float(np.float32(radius) ** 2)
+    rounds = []
+    for k in (32, counted_k(csr["fixed_radius"])):
+        out = (torch.empty((n, k), device=dev),
+               torch.empty((n, k), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev))
+        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def run():
+            tests.zero_()
+            grid_round(pts, grid, pts, qid, r2, k, out=out, tests=tests)
+
+        ms = median_ms(run, 3, torch.cuda.synchronize, warmup=False)
+        n_tests = int(tests.item())
+        b = bound(n * d * 4 + grid.table_size * grid.cap * 4
+                  + (n + 1) * d * 4 + n * 4 + n * k * 8 + n * 4,
+                  n_tests * 3 * d)
+        rounds.append((k, ms, b, n_tests))
+        log(f"  counted range round k={k} Q={n} res={grid.res} cap="
+            f"{grid.cap} n_tests={n_tests}: kernel {ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        del out
+
+    graph, graph_s, counts = counted(
+        "knn graph", lambda: build_knn_graph(tk_index, 8), tally)
+    deg = graph.counts
+    check(graph.n == n and graph.n_edges >= n * 8, "graph size")
+    log(f"  build_knn_graph(trueknn, 8): nodes={graph.n} edges="
+        f"{graph.n_edges} degree min {int(deg.min())} mean "
+        f"{float(deg.mean()):.3f} max {int(deg.max())}; wall_s={graph_s:.4f}"
+        f" launches {counts}")
+
+    # DBSCAN: the device part is its one range self-query, timed inside
+    inner = []
+    query = tk_index.query
+
+    def timed_query(*a, **kw):
+        t0 = time.perf_counter()
+        out = query(*a, **kw)
+        torch.cuda.synchronize()
+        inner.append(time.perf_counter() - t0)
+        return out
+
+    tk_index.query = timed_query
+    try:
+        clusters, wall, counts = counted(
+            "dbscan", lambda: dbscan(tk_index, radius, 8), tally)
+    finally:
+        del tk_index.query
+    check(len(inner) == 1, "dbscan ran one self-query")
+    check(clusters.labels.shape == (n,) and clusters.n_clusters > 0,
+          "dbscan labels")
+    check(np.array_equal(clusters.core,
+                         csr["trueknn"].counts + 1 >= 8), "dbscan core mask")
+    log(f"  dbscan(trueknn, {radius:.6g}, 8): clusters={clusters.n_clusters}"
+        f" core={int(clusters.core.sum())} noise={clusters.n_noise}; "
+        f"wall_s={wall:.4f}, of which the range self-query {inner[0]:.4f} s "
+        f"and the host union-find and labels {wall - inner[0]:.4f} s; "
+        f"launches {counts}")
+    return rounds
+
+
 
 def main() -> int:
     import torch
@@ -811,9 +1152,9 @@ def main() -> int:
     kitti_sched, grid_err, heavy = phase_grid(dev, kitti_np, rng)
     log(f"  (schedule of {len(kitti_sched[0].radii)} rounds)")
     log("phase 4: main path, trueknn KnnSpec(8) self-query on kitti 2^20")
-    index, b1, main_counts, radius = phase_main(dev, kitti_np, rng)
+    index, (b1, b2), main_counts, radius = phase_main(dev, kitti_np, rng)
     log("phase 5: brute RangeSpec at full width")
-    range_counts, q, qid, thr, range_err = phase_range(
+    range_counts, q, qid, thr, range_err, range5 = phase_range(
         dev, kitti_np, radius, rng)
     log("phase 6: porto 2^18, fused and host loop")
     phase_porto(dev, rng)
@@ -822,6 +1163,16 @@ def main() -> int:
                                              heavy, rng)
     log("phase 8: grid_round's two designs on every scheduled grid")
     sweep = phase_designs(dev, kitti_sched)
+    del kitti_sched
+    tally = {"pairwise_topk": 0, "grid_round": 0}
+    log(f"phase 9: fixed_radius on kitti 2^20 at r = {radius:.6g}")
+    fr_index = phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally)
+    log("phase 10: generic routes on 4096 rows")
+    route_s = phase_routes(dev, kitti_np, index, fr_index, rng, tally)
+    log("phase 11: all-pairs self-queries, kNN graph and DBSCAN")
+    range_rounds = phase_all_pairs(dev, index, fr_index, b2, radius, tally)
+    log(f"  phases 9-11 launches {tally}; route seconds "
+        f"{json.dumps(route_s)}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -834,14 +1185,15 @@ def main() -> int:
             "source": "src/repro_torch/csrc/pairwise_topk.cu",
             "replaces": "src/repro/kernels/pairwise_topk.py:181",
             "launches": main_counts["pairwise_topk"]
-            + range_counts["pairwise_topk"],
+            + range_counts["pairwise_topk"] + tally["pairwise_topk"],
             "max_abs_err": max(pw_err, range_err),
             "ms": t_k,
             "plain_ms": t_p,
             "bound_ms": pw_b[0],
             "bound_by": pw_b[1],
             "library_ms": None,
-            "held_in": ["phase 2", "phase 5"],
+            "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
+                        "phase 11"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -855,20 +1207,25 @@ def main() -> int:
             "source": "src/repro_torch/csrc/grid_round.cu",
             "replaces": "src/repro/core/fixed_radius.py:36",
             "launches": main_counts["grid_round"]
-            + range_counts["grid_round"],
+            + range_counts["grid_round"] + tally["grid_round"],
             "max_abs_err": grid_err,
             "ms": g_k,
             "plain_ms": g_p,
             "bound_ms": g_b[0],
             "bound_by": g_b[1],
             "library_ms": None,
-            "held_in": ["phase 3", "phase 7", "phase 8"],
+            "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
+                        "phase 10", "phase 11"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),
                 shape_row(f"heaviest round t={heavy[2]} Q=2^20 k=8 "
                           f"res={heavy[0].res} cap={heavy[0].cap}",
                           *heavy_t[:3], n_tests=heavy_t[3]),
+            ] + [
+                shape_row(f"counted range round Q=2^20 k={k}", ms, None, b,
+                          n_tests=nt)
+                for k, ms, b, nt in range_rounds
             ],
         },
     ]

@@ -7,9 +7,12 @@ is the reference and stays as it is).
     index = build_index(pts, backend="trueknn")          # device="cuda"
     res = index.query(None, KnnSpec(8))                  # self-query
 
-Indexes live on the card by default and run the hand-written CUDA
-kernels (``csrc/``); ``device="cpu"`` runs their plain PyTorch versions.
-This package imports torch, numpy and the standard library only.
+Backends ``brute``, ``fixed_radius`` and ``trueknn`` answer every spec
+and metric through the planner; ``repro_torch.workloads`` builds kNN
+graphs and DBSCAN clusterings on top.  Indexes live on the card by default
+and run the hand-written CUDA kernels (``csrc/``); ``device="cpu"`` runs
+their plain PyTorch versions.  This package imports torch, numpy and the
+standard library only.
 """
 
 from .api import (

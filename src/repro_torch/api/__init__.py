@@ -8,7 +8,10 @@
     plan = index.prepare(KnnSpec(k=8)); plan(batch)   # plan once, run many
 
 Same surface as ``repro.api`` for the ported backends (``brute``,
-``trueknn``) and routes (native), plus the ``device`` build knob.
+``fixed_radius``, ``trueknn``) and every planner route but the sharded
+ones (native hooks, ``knn_fallback``, ``knn_filter``, ``knn_sweep``,
+``l2_view``, ``brute_metric``, ``all_pairs``), plus the ``device`` build
+knob.
 """
 
 from ..core.result import KNNResult, RangeResult, RoundStats

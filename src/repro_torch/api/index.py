@@ -6,9 +6,10 @@ a host copy for the numpy-side bookkeeping and a tensor on the index's
 device for the kernels — and ``query`` is the hot-path call.  ``query``
 takes a typed spec (``KnnSpec`` / ``RangeSpec`` / ``HybridSpec``) and a
 metric name; the planner (``repro_torch.api.planner``) routes it to the
-backend's native ``execute_*`` hook.  The generic routes of the reference
-planner are not ported yet and raise ``NotImplementedError`` when a plan
-needs one.
+backend's native ``execute_*`` hook where the backend has one, and to the
+reference's generic plans otherwise (knn-then-filter for hybrid, an
+oversized-k sweep for range, a companion index over the transformed cloud
+or the exact brute engine for metrics the backend lacks).
 
 ``device`` is a build knob of every backend: ``"cuda"`` (the default)
 puts the index on the card and runs the CUDA kernels, ``"cpu"`` runs
@@ -47,6 +48,9 @@ class NeighborIndex(abc.ABC):
     backend_name: str = "?"
     #: metrics the backend's engine computes natively (planner contract)
     native_metrics: frozenset = frozenset({"l2"})
+    #: cfg knobs that are radii in query-metric units; mapped through
+    #: ``metric.radius_to_l2`` when a metric companion view is built
+    radius_cfg_keys: tuple = ()
     #: what KnnSpec.start_radius means to this backend: a "seed" for the
     #: radius schedule or a hard "bound" on returned neighbors
     knn_start_radius_semantics: str = "seed"
@@ -59,6 +63,7 @@ class NeighborIndex(abc.ABC):
         self._device = resolve_device(device)
         #: the resident cloud on the index's device
         self._pts_t = torch.from_numpy(pts).to(self._device)
+        self._metric_views: dict = {}  # metric name -> companion index
 
     # -- introspection ----------------------------------------------------
 
@@ -100,6 +105,7 @@ class NeighborIndex(abc.ABC):
             "n_points": self.n_points,
             "dim": self.dim,
             "generation": self.generation,
+            "metric_views": sorted(self._metric_views),
             "device": str(self._device),
         }
 
@@ -150,6 +156,42 @@ class NeighborIndex(abc.ABC):
         """Native radius-capped kNN (absent: generic route)."""
         raise NotImplementedError
 
+    def knn_spec_radius_cut(self, spec: KnnSpec):
+        """The radius bound this backend applies to a ``KnnSpec`` answer
+        (None = unbounded).  Generic plans honor it, so a spec keeps one
+        meaning on a backend whatever metric route answers it: "bound"
+        backends cap at ``start_radius``, "seed" backends treat it as a
+        scheduling hint with no effect on the answer set."""
+        if self.knn_start_radius_semantics == "bound":
+            return spec.start_radius
+        return None
+
+    # -- metric companion views -------------------------------------------
+
+    def metric_view(self, metric: Metric) -> "NeighborIndex":
+        """Companion index of the same backend over the metric's transformed
+        cloud (built lazily, cached for the life of this index), on this
+        index's device.  Grids, round schedules and warm-start state all
+        operate in transformed space; only distances and radii are mapped
+        at the planner boundary."""
+        if not metric.has_l2_view:
+            raise ValueError(f"metric {metric.name!r} has no L2 view")
+        view = self._metric_views.get(metric.name)
+        if view is None:
+            cfg = dict(getattr(self, "_build_cfg", None) or {})
+            # radius-valued knobs were given in query-metric units; the
+            # companion searches transformed (L2) space, so map them
+            for key in self.radius_cfg_keys:
+                if cfg.get(key) is not None:
+                    cfg[key] = metric.radius_to_l2(float(cfg[key]))
+            # the device is this index's own, whatever the stashed cfg says
+            # (an index built by its constructor has none)
+            cfg["device"] = self._device
+            view = type(self)(metric.transform_points(self._pts), **cfg)
+            view._build_cfg = cfg
+            self._metric_views[metric.name] = view
+        return view
+
 
 def _valid_cfg_keys(cls) -> Optional[set]:
     """Keyword knobs of ``cls.__init__`` past (self, points); None means
@@ -196,4 +238,6 @@ def build_index(points, *, backend: str = "trueknn", **cfg) -> NeighborIndex:
         raise TypeError(
             f"backend {backend!r} ({cls.__name__}) must subclass NeighborIndex"
         )
+    # remembered so metric companion views rebuild with the same knobs
+    index._build_cfg = dict(cfg)
     return index

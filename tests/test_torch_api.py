@@ -1,6 +1,7 @@
 """The port's index API against the JAX package: brute kNN / hybrid /
 range for the four metrics, TrueKNN's native range, plan trees and plan
-bookkeeping, the routes not ported yet, and the device knob."""
+bookkeeping, the reference's errors, and the device knob.  The generic
+routes are held against the reference in ``test_torch_planner.py``."""
 
 import numpy as np
 import pytest
@@ -8,7 +9,6 @@ import torch
 
 import repro.api as jax_api
 from repro_torch import (
-    AllPairsSpec,
     HybridSpec,
     KnnSpec,
     RangeSpec,
@@ -124,20 +124,6 @@ def test_prepared_plan_padding_and_cache_stats():
         assert np.array_equal(a.idxs, b.idxs)
         assert a.timings.get("padded_rows") == b.timings.get("padded_rows")
     assert plan.cache_stats() == jplan.cache_stats()
-
-
-@pytest.mark.parametrize("metric,spec,route", [
-    ("cosine", KnnSpec(4), "l2_view"),
-    ("l1", KnnSpec(4), "brute_metric"),
-    ("linf", RangeSpec(0.2), "brute_metric"),
-    ("l2", AllPairsSpec(k=3), "all_pairs"),
-])
-def test_unported_routes_raise_naming_the_route(metric, spec, route):
-    index = build_index(PTS, backend="trueknn", device="cpu")
-    with pytest.raises(NotImplementedError, match=route):
-        index.prepare(spec, metric=metric)
-    with pytest.raises(NotImplementedError, match=route):
-        index.query(None, spec, metric=metric)
 
 
 def test_reference_errors_kept():

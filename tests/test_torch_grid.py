@@ -426,3 +426,29 @@ def test_cuda_grid_round_low_d_matches_plain(cloud, d, frac, coarse, fused):
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@needs_card
+@pytest.mark.parametrize("radius_frac", [0.02, 0.3])
+def test_cuda_fixed_radius_index_matches_cpu(radius_frac):
+    """The ``fixed_radius`` backend on the card launches the grid-round
+    kernel for every round and answers kNN, hybrid and range exactly as
+    the same index on the CPU (on a fine grid and on a collapsed one)."""
+    from repro_torch import HybridSpec, KnnSpec, RangeSpec, build_index
+    from repro_torch.kernels import build
+
+    pts = make_dataset("kitti", 3000, seed=4)
+    qs = make_dataset("kitti", 100, seed=5)
+    r = float((pts.max(0) - pts.min(0)).max()) * radius_frac
+    cpu = build_index(pts, backend="fixed_radius", device="cpu", radius=r)
+    build.reset_launches()
+    gpu = build_index(pts, backend="fixed_radius", device="cuda", radius=r)
+    for q in (qs, None):
+        for spec in (KnnSpec(8), HybridSpec(40, r), RangeSpec(r)):
+            got, want = gpu.query(q, spec), cpu.query(q, spec)
+            keys = (("offsets", "idxs", "dists") if hasattr(want, "offsets")
+                    else ("dists", "idxs", "found"))
+            for key in keys:
+                assert np.array_equal(getattr(got, key), getattr(want, key))
+            assert got.n_tests == want.n_tests
+    assert build.launch_counts()["grid_round"] > 0

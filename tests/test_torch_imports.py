@@ -23,6 +23,13 @@ assert res.dists.shape == (400, 4) and np.isfinite(res.dists).all()
 rng = build_index(pts, backend="brute", device="cpu").query(
     pts[:10], RangeSpec(1.0))
 assert rng.n_queries == 10
+import repro_torch.api.backends.fixed_radius
+import repro_torch.workloads
+from repro_torch.workloads import build_knn_graph, dbscan
+
+fr = build_index(pts, backend="fixed_radius", radius=0.5, device="cpu")
+assert build_knn_graph(fr, 3).n == 400
+assert dbscan(fr, 0.5, 4).labels.shape == (400,)
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
