@@ -6,9 +6,9 @@
 Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 ``torch.utils.cpp_extension.load`` call), holds each against its plain
 PyTorch version on the card, then drives the port's entry points (the
-trueknn, brute and fixed_radius backends, the planner's generic routes,
-all-pairs self-queries and the graph workloads) at full width through the
-user API and checks what comes out:
+trueknn, brute, fixed_radius, distributed and sharded backends, the
+planner's generic routes, all-pairs self-queries and the graph workloads)
+at full width through the user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -64,10 +64,28 @@ user API and checks what comes out:
    follows each backend's grid), the
    counted range's two rounds timed at full width, ``build_knn_graph`` and
    ``dbscan`` (the union-find's host seconds apart from the device part);
+12. ``build_index(kitti 2^22, backend="distributed")`` on a ``DeviceMesh``
+   whose model axis holds the one card at 4 positions (2^20 points a
+   shard, ``configs/trueknn.py``'s widths), two ``KnnSpec(8)`` batches of
+   2^16 rows, equal bitwise to the brute backend and to a one-position
+   mesh;
+13. ``distributed_trueknn_grid`` on phase 12's mesh over uniform 2^22 (on
+   kitti the reference's shared stacked-grid shape needs up to 2^40 slots
+   a shard) and 2^16 rows: distances to TOL and indices up to the order
+   of tied neighbors against the dense engine on the same rows, fewer
+   candidate tests than it, host grid builds apart;
+14. ``build_index(kitti 2^20, backend="sharded", n_shards=8)`` with
+   trueknn children on the host: ``KnnSpec(8)`` on two batches of 2^16
+   rows (the second on the warm seed), ``HybridSpec(8, r)`` and
+   ``RangeSpec(r)`` on phase 5's rows, ``AllPairsSpec(8)``, each held
+   against the monolithic trueknn (phases 4, 5): distances bitwise,
+   indices up to the order of tied neighbors (a grid round orders ties by
+   grid slot, the shard merge by index); pruned visits and child
+   dispatches printed;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-11) and read
+are zeroed just before each entry point (phases 4, 5 and 9-14) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -98,6 +116,9 @@ DEGEN_ROWS = 2048  # 8 blocks of the coarse design at k = 8
 SEED = 0
 FINE_TEST_BUDGET = 1 << 36  # most tests phase 8 gives the fine design
 CHUNK_ROWS = 1 << 18  # phase 11's chunked all-pairs: 4 blocks of the cloud
+P_MESH = 4  # phases 12-13: model positions, 2^20 points each
+MESH_ROUNDS = 24  # configs/trueknn.py: max_rounds
+DIST_ROWS = 1 << 16  # configs/trueknn.py: n_queries = 1 << 16
 
 
 def check(cond, msg):
@@ -1113,6 +1134,177 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
     return rounds
 
 
+# -- phases 12-14: the mesh-sharded engines and the sharded backend --------
+
+
+def knn_up_to_ties(tag, gd, gi, wd, wi, *, dist_tol=None):
+    """Two kNN answers: distances bitwise (or to ``dist_tol``), indices
+    bitwise once each row is ordered by (dist, idx).  A grid round orders
+    neighbors at equal distance by their slot in its grid, the dense
+    engines and the shard merges by index.  Returns the number of rows
+    whose indices differ before that ordering."""
+    if dist_tol is None:
+        check(np.array_equal(gd, wd), f"{tag}: distances differ")
+    else:
+        np.testing.assert_allclose(gd, wd, rtol=dist_tol, atol=dist_tol)
+    rows = np.arange(gd.shape[0])[:, None]
+    og = np.lexsort((gi, wd, np.broadcast_to(rows, gi.shape)), axis=-1)
+    ow = np.lexsort((wi, wd, np.broadcast_to(rows, wi.shape)), axis=-1)
+    check(np.array_equal(np.take_along_axis(gi, og, 1),
+                         np.take_along_axis(wi, ow, 1)),
+          f"{tag}: indices differ beyond tie order")
+    return int((gi != wi).any(axis=1).sum())
+
+
+def phase_distributed(dev, rng, tally):
+    """Phase 12: ``backend="distributed"`` on a 4-position model axis, all
+    on the one card, over kitti 2^22 (2^20 points a shard), two batches of
+    2^16 query rows, held against the brute backend and a one-position
+    mesh."""
+    from repro_torch import DeviceMesh, KnnSpec, build_index, make_dataset
+
+    n = P_MESH * N_MAIN
+    cloud = make_dataset("kitti", n)
+    rows = np.sort(rng.choice(n, DIST_ROWS, replace=False))
+    q = cloud[rows]
+    mesh = DeviceMesh([dev] * P_MESH)
+    index = build_index(cloud, backend="distributed", mesh=mesh, device=dev,
+                        growth=2.0, max_rounds=MESH_ROUNDS)
+    batches = []
+    for b in (1, 2):
+        res, wall, counts = counted(
+            f"distributed batch {b}", lambda: index.query(q, KnnSpec(8)),
+            tally, need=("pairwise_topk",))
+        batches.append(res)
+        log(f"  batch {b}: mesh {mesh.shape} rows={DIST_ROWS} start_r="
+            f"{res.start_radius:.6g} rounds={res.timings['mesh_rounds']} "
+            f"n_tests={res.n_tests} wall_s={wall:.4f} launches {counts}")
+    b1, b2 = batches
+    same_arrays("distributed batches", b1, b2, ("dists", "idxs"))
+    check(b1.dists.shape == (DIST_ROWS, 8) and np.isfinite(b1.dists).all(),
+          "distributed answer shape")
+    brute = build_index(cloud, backend="brute", device=dev)
+    want = brute.query(q, KnnSpec(8))
+    same_arrays("distributed vs brute", b1, want, ("dists", "idxs"))
+    one = build_index(cloud, backend="distributed", device=dev,
+                      mesh=DeviceMesh([dev]), max_rounds=MESH_ROUNDS)
+    t0 = time.perf_counter()
+    solo = one.query(q, KnnSpec(8))
+    solo_s = time.perf_counter() - t0
+    same_arrays("4-position vs 1-position mesh", b1, solo, ("dists", "idxs"))
+    log(f"  equal bitwise (distances and indices) to the brute backend "
+        f"and to a one-position mesh (rounds={solo.timings['mesh_rounds']}, "
+        f"wall_s={solo_s:.4f})")
+    return mesh
+
+
+def phase_distributed_grid(dev, mesh, rng, tally):
+    """Phase 13: ``distributed_trueknn_grid`` on phase 12's mesh over a
+    uniform 2^22 cloud and 2^16 of its rows, held against the dense engine
+    (``backend="distributed"``) on the same rows.  Not on kitti: the
+    stacked grids share one (table_size, cap), the largest over the
+    shards, and kitti's shards straddle the sizing probe's collapse (one
+    shard asks for a fine table, another for a 2^19 cap), so the shared
+    shape needs up to 2^40 slots a shard; on a uniform cloud every shard
+    asks for the same shape."""
+    from repro_torch import KnnSpec, build_index, make_dataset
+    from repro_torch.core.distributed_grid import distributed_trueknn_grid
+
+    n = P_MESH * N_MAIN
+    cloud = make_dataset("uniform", n)
+    q = cloud[np.sort(rng.choice(n, DIST_ROWS, replace=False))]
+    t0 = time.perf_counter()
+    dense = build_index(cloud, backend="distributed", mesh=mesh, device=dev,
+                        max_rounds=MESH_ROUNDS).query(q, KnnSpec(8))
+    log(f"  dense engine on the same rows: rounds="
+        f"{dense.timings['mesh_rounds']} n_tests={dense.n_tests} wall_s="
+        f"{time.perf_counter() - t0:.4f}")
+    (d, i, st), wall, counts = counted(
+        "distributed grid",
+        lambda: distributed_trueknn_grid(cloud, 8, mesh, queries=q,
+                                         max_rounds=MESH_ROUNDS), tally)
+    for r in st["rounds"]:
+        log(f"    round: r={r['radius']:.6g} rows={r['queries']} resolved="
+            f"{r['resolved']} tests={r['tests']} table={r['table']} "
+            f"cap={r['cap']}")
+    reordered = knn_up_to_ties("grid engine vs dense", d, i, dense.dists,
+                               dense.idxs, dist_tol=TOL)
+    bitwise = np.array_equal(d, dense.dists)
+    check(st["total_tests"] < dense.n_tests,
+          "the grid engine tests fewer candidates than the dense one")
+    log(f"  {len(st['rounds'])} rounds, total_tests={st['total_tests']} "
+        f"(dense: {dense.n_tests}); distances "
+        f"{'bitwise' if bitwise else f'to {TOL:g}'} and indices equal to "
+        f"the dense engine's up to tie order ({reordered} rows list tied "
+        f"neighbors in another order); host grid builds "
+        f"{st['grid_build_seconds']:.4f} s of wall_s={wall:.4f}; launches "
+        f"{counts}")
+    return wall, st["grid_build_seconds"]
+
+
+def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
+    """Phase 14: ``backend="sharded"`` on the host over kitti 2^20, 8 morton
+    shards of trueknn children, each answer held against the monolithic
+    trueknn index of phase 4 on the same rows."""
+    from repro_torch import (AllPairsSpec, HybridSpec, KnnSpec, RangeSpec,
+                             build_index)
+
+    t0 = time.perf_counter()
+    index = build_index(kitti_np, backend="sharded", n_shards=8,
+                        child_backend="trueknn", device=dev)
+    log(f"  built 8 trueknn shards (sizes {index.stats()['shard_sizes']}) "
+        f"in {time.perf_counter() - t0:.2f}s")
+
+    def run(tag, fn):
+        before = index.stats()["child_dispatches"]
+        res, wall, counts = counted(f"sharded {tag}", fn, tally)
+        log(f"  {tag}: plan={res.timings['plan']} child dispatches="
+            f"{index.stats()['child_dispatches'] - before} "
+            f"wall_s={wall:.4f} launches {counts}")
+        return res, wall
+
+    secs = {}
+    for b in (1, 2):
+        rows = np.sort(rng.choice(N_MAIN, DIST_ROWS, replace=False))
+        q = kitti_np[rows]
+        res, secs[f"knn batch {b}"] = run(
+            f"KnnSpec(8) batch {b} ({DIST_ROWS} rows, "
+            f"seed {index.stats()['warm_seed'].get('l2')})",
+            lambda: index.query(q, KnnSpec(8)))
+        want = tk_index.query(q, KnnSpec(8))
+        n = knn_up_to_ties("sharded knn vs trueknn", res.dists, res.idxs,
+                           want.dists, want.idxs)
+        log(f"    vs monolithic trueknn: distances bitwise, indices bitwise "
+            f"but for {n} rows whose tied neighbors come in another order")
+    rows5, csr5 = range5
+    q5 = kitti_np[rows5]
+    res, secs["hybrid"] = run(f"HybridSpec(8, {radius:.6g})",
+                              lambda: index.query(q5, HybridSpec(8, radius)))
+    want = tk_index.query(q5, HybridSpec(8, radius))
+    n = knn_up_to_ties("sharded hybrid vs trueknn", res.dists, res.idxs,
+                       want.dists, want.idxs)
+    log(f"    vs monolithic trueknn: distances bitwise, indices bitwise but "
+        f"for {n} rows (tie order)")
+    res, secs["range"] = run(f"RangeSpec({radius:.6g})",
+                             lambda: index.query(q5, RangeSpec(radius)))
+    n = same_csr_up_to_ties("sharded range vs phase 5", res, csr5)
+    log(f"    vs phase 5's CSR: offsets and distances bitwise, indices "
+        f"bitwise but for {n} rows (tie order); nnz={len(res.idxs)}")
+    res, secs["all_pairs"] = run("AllPairsSpec(8)",
+                                 lambda: index.query(None, AllPairsSpec(8)))
+    n = knn_up_to_ties("sharded all-pairs vs phase 4", res.dists, res.idxs,
+                       b2.dists, b2.idxs)
+    log(f"    vs phase 4's batch 2: distances bitwise, indices bitwise but "
+        f"for {n} rows (tie order); self-local rows "
+        f"{res.timings.get('self_local_rows')}, boundary rows "
+        f"{res.timings.get('self_boundary_rows')}")
+    s = index.stats()
+    log(f"  pruned {s['shard_visits_pruned']} of "
+        f"{s['shard_visits'] + s['shard_visits_pruned']} (query, shard) "
+        f"visits (rate {s['prune_rate']}), {s['child_dispatches']} child "
+        f"dispatches, {s['shard_rounds']} shared-cut rounds")
+    return secs
+
 
 def main() -> int:
     import torch
@@ -1173,6 +1365,24 @@ def main() -> int:
     range_rounds = phase_all_pairs(dev, index, fr_index, b2, radius, tally)
     log(f"  phases 9-11 launches {tally}; route seconds "
         f"{json.dumps(route_s)}")
+    del fr_index
+    t0 = time.perf_counter()
+    log("phase 12: distributed dense, 4 positions on one card, kitti 2^22")
+    mesh = phase_distributed(dev, rng, tally)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    log("phase 13: distributed_trueknn_grid on phase 12's mesh, uniform "
+        "2^22")
+    phase_distributed_grid(dev, mesh, rng, tally)
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    log("phase 14: sharded (placement='host') over kitti 2^20, 8 trueknn "
+        "shards")
+    sharded_s = phase_sharded(dev, kitti_np, index, b2, range5, radius, rng,
+                              tally)
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f}s; seconds "
+        f"{json.dumps(sharded_s)}")
+    log(f"  phases 9-14 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1193,7 +1403,7 @@ def main() -> int:
             "bound_by": pw_b[1],
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
-                        "phase 11"],
+                        "phase 11", "phase 12"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -1215,7 +1425,7 @@ def main() -> int:
             "bound_by": g_b[1],
             "library_ms": None,
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
-                        "phase 10", "phase 11"],
+                        "phase 10", "phase 11", "phase 13", "phase 14"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

@@ -7,9 +7,11 @@ is the reference and stays as it is).
     index = build_index(pts, backend="trueknn")          # device="cuda"
     res = index.query(None, KnnSpec(8))                  # self-query
 
-Backends ``brute``, ``fixed_radius`` and ``trueknn`` answer every spec
-and metric through the planner; ``repro_torch.workloads`` builds kNN
-graphs and DBSCAN clusterings on top.  Indexes live on the card by default
+Backends ``brute``, ``fixed_radius``, ``trueknn``, ``distributed``
+(points sharded over a ``DeviceMesh``) and ``sharded`` (a spatially
+partitioned composite, ``placement="host"``) answer every spec and metric
+through the planner; ``repro_torch.workloads`` builds kNN graphs and
+DBSCAN clusterings on top.  Indexes live on the card by default
 and run the hand-written CUDA kernels (``csrc/``); ``device="cpu"`` runs
 their plain PyTorch versions.  This package imports torch, numpy and the
 standard library only.
@@ -17,6 +19,7 @@ standard library only.
 
 from .api import (
     AllPairsSpec,
+    DeviceMesh,
     HybridSpec,
     KnnSpec,
     NeighborIndex,
@@ -31,6 +34,7 @@ from .core.result import KNNResult, RangeResult, RoundStats
 __all__ = [
     "build_index",
     "available_backends",
+    "DeviceMesh",
     "NeighborIndex",
     "QuerySpec",
     "KnnSpec",

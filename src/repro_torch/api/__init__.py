@@ -8,12 +8,14 @@
     plan = index.prepare(KnnSpec(k=8)); plan(batch)   # plan once, run many
 
 Same surface as ``repro.api`` for the ported backends (``brute``,
-``fixed_radius``, ``trueknn``) and every planner route but the sharded
-ones (native hooks, ``knn_fallback``, ``knn_filter``, ``knn_sweep``,
-``l2_view``, ``brute_metric``, ``all_pairs``), plus the ``device`` build
-knob.
+``fixed_radius``, ``trueknn``, ``distributed`` on a ``DeviceMesh``, and
+``sharded`` with ``placement="host"``) and every planner route (native
+hooks, ``knn_fallback``, ``knn_filter``, ``knn_sweep``, ``l2_view``,
+``brute_metric``, ``all_pairs``, shard pruning), plus the ``device``
+build knob.
 """
 
+from ..core.distributed import DeviceMesh
 from ..core.result import KNNResult, RangeResult, RoundStats
 from .metrics import (
     Metric,
@@ -33,6 +35,7 @@ __all__ = [
     "KNNResult",
     "RangeResult",
     "RoundStats",
+    "DeviceMesh",
     "QuerySpec",
     "KnnSpec",
     "RangeSpec",

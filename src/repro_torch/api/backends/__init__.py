@@ -7,13 +7,19 @@ Importing this package registers:
   fixed_radius  one grid round within an exact radius ball (paper Alg. 1)
   trueknn       multi-round unbounded search with grid cache + warm start
                 (paper Alg. 3; the serving default)
+  distributed   points sharded over a ``DeviceMesh``, hypercube top-k merge
+  sharded       spatially-partitioned composite over child indexes, with
+                radius-aware shard pruning (``placement="host"``)
 
-The reference's ``sharded``, ``distributed`` and ``mutable`` backends are
-not ported yet.
+The reference's ``mutable`` backend and the sharded backend's
+``placement="devices"`` are not ported yet.
 """
 
 from .brute import BruteIndex
+from .distributed import DistributedIndex
 from .fixed_radius import FixedRadiusIndex
+from .sharded import PRUNE_SLACK, ShardedIndex
 from .trueknn import TrueKNNIndex
 
-__all__ = ["BruteIndex", "FixedRadiusIndex", "TrueKNNIndex"]
+__all__ = ["BruteIndex", "DistributedIndex", "FixedRadiusIndex",
+           "ShardedIndex", "PRUNE_SLACK", "TrueKNNIndex"]

@@ -30,9 +30,15 @@ Routing rules:
      metric-aware brute engine (the ``pairwise_topk`` kernel on the card).
 
 Generic plans tag ``result.timings["plan"]``; the same strings are the
-``tag`` of each ``PlanNode`` (``plan.explain()``).  The reference's
-shard-pruning helpers belong to the sharded backend, which is not ported
-yet.
+``tag`` of each ``PlanNode`` (``plan.explain()``).
+
+The planner also owns the *shard-pruning* vocabulary of the composite
+``sharded`` backend: :func:`shard_visit_mask` is the radius-aware pruning
+decision (a shard whose AABB lower bound exceeds the query's current
+radius cut cannot hold an answer, so it is skipped without a distance
+test — RTNN's search-space restriction), and :func:`shard_plan_tag`
+renders the ``sharded/pruned=<m-of-n>`` plan tag every pruned plan
+carries.
 """
 
 from __future__ import annotations
@@ -67,9 +73,46 @@ __all__ = [
     "range_from_counted_round",
     "range_via_counted_topk",
     "resolve_self_queries",
+    "shard_visit_mask",
+    "shard_plan_tag",
+    "placed_plan_tag",
 ]
 
 _L2 = "l2"
+
+
+def shard_visit_mask(bounds, cut) -> np.ndarray:
+    """Radius-aware shard pruning: which (query, shard) pairs can possibly
+    hold an answer within ``cut``.
+
+    ``bounds`` is (Q, S) lower bounds on the distance from each query to
+    anything inside each shard (AABB excess bounds, deflated for float32
+    engine rounding — see ``repro_torch.core.partition``); ``cut`` is the
+    query's current radius — a scalar, or (Q,) per-query cuts (TrueKNN
+    rounds grow it, range/hybrid specs fix it up front).  Inclusive at the
+    boundary, matching every engine's ``<= r`` in-radius test, so pruning
+    never changes an answer — only the work done to produce it.
+    """
+    bounds = np.asarray(bounds)
+    cut = np.asarray(cut, np.float64)
+    if cut.ndim == 1:
+        cut = cut[:, None]
+    return bounds <= cut
+
+
+def shard_plan_tag(visited: int, potential: int) -> str:
+    """``sharded/pruned=<m-of-n>``: m of the n potential (query, shard)
+    visits were pruned away this call."""
+    return f"sharded/pruned={int(potential) - int(visited)}-of-{int(potential)}"
+
+
+def placed_plan_tag(visited: int, potential: int, dispatches: int) -> str:
+    """The device-placed flavor of :func:`shard_plan_tag`: same pruning
+    count (the placed path prunes identically — masks are data), plus how
+    many fused dispatches answered the whole call.  Keeps the
+    ``sharded/pruned=`` prefix so every existing tag consumer still
+    parses it."""
+    return shard_plan_tag(visited, potential) + f"/placed={int(dispatches)}"
 
 
 def resolve_self_queries(index, queries):

@@ -21,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Grid", "build_grid", "stencil_offsets", "hash_coords"]
+__all__ = ["Grid", "GridCapError", "build_grid", "grid_shape",
+           "stencil_offsets", "hash_coords"]
 
 # Teschner et al. spatial-hash primes (one per axis).
 _HASH_PRIMES = (73856093, 19349663, 83492791)
@@ -130,31 +131,17 @@ def _bin_points(points, origin, inv_cell, res_arr, *, table_size: int,
     return buckets, point_cells
 
 
-def build_grid(
-    points,
-    radius: float,
-    *,
-    device_points=None,
-    max_bucket_elems: int = 1 << 25,
-    load_factor: float = 0.5,
-    force_table_size: int = 0,
-    force_cap: int = 0,
-    n_valid: int = 0,
-    probe_cache: dict = None,
-) -> Grid:
-    """Build a hash grid whose effective cell size is >= ``radius`` per axis.
+class GridCapError(ValueError):
+    """A forced bucket capacity is below what the points need."""
 
-    ``points`` is the host copy ((N, d) array) the sizing probe reads;
-    ``device_points`` the same cloud as a tensor, binned on its device (the
-    CPU when None).  ``n_valid``: rows beyond it are padding, excluded from
-    the index.  ``probe_cache``: optional per-cloud memo of the sizing
-    probe, keyed by (n_valid, initial res); ``"_hits"`` / ``"_misses"``
-    count lookups.  Ignored under ``force_table_size`` / ``force_cap``.
-    """
-    pts_all = np.asarray(points, dtype=np.float32)
-    n, d = pts_all.shape
-    n_valid = n_valid or n
-    pts = pts_all[:n_valid]
+
+def _size_grid(pts, radius: float, *, max_bucket_elems: int,
+               load_factor: float, force_table_size: int, force_cap: int,
+               probe_cache: dict):
+    """The reference's table-sizing probe: (table_size, cap, res, cell, lo)
+    for the valid rows ``pts``, coarsening the resolution until the table
+    fits ``max_bucket_elems`` (not under a forced shape)."""
+    n_valid, d = pts.shape
     lo = pts.min(axis=0)
     hi = pts.max(axis=0)
     extent = np.maximum(hi - lo, 1e-12)
@@ -174,38 +161,86 @@ def build_grid(
         table_size, cap, res_t = cached
         res = np.asarray(res_t, np.int64)
         cell = (extent / res).astype(np.float32)
-    else:
-        while True:
-            cell = (extent / res).astype(np.float32)
-            coords = np.clip(
-                np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
-            )
-            # pack to a unique id per occupied cell (host side, exact)
-            packed = coords[:, 0]
-            for a in range(1, d):
-                packed = packed * res[a] + coords[:, a]
-            n_occ = len(np.unique(packed))
-            table_size = force_table_size or _next_pow2(
-                max(int(n_occ / load_factor), 16)
-            )
-            h = hash_coords(coords.astype(np.int64), table_size)
-            occ = np.bincount(h, minlength=table_size)
-            needed_cap = _next_pow2(max(int(occ.max()), 1))
-            if force_cap:
-                # caller pre-computed a shared shape; it must be adequate —
-                # exactness over silent truncation.
-                assert needed_cap <= force_cap, (needed_cap, force_cap)
-                cap = force_cap
-                break
-            cap = needed_cap
-            if table_size * cap <= max_bucket_elems or int(res.max()) == 1:
-                break
-            res = np.maximum(res // 2, 1)  # coarsen (cells grow — always safe)
-        if use_cache:
-            probe_cache["_misses"] = probe_cache.get("_misses", 0) + 1
-            probe_cache[probe_key] = (
-                table_size, cap, tuple(int(r) for r in res)
-            )
+        return table_size, cap, res, cell, lo
+    while True:
+        cell = (extent / res).astype(np.float32)
+        coords = np.clip(
+            np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
+        )
+        # pack to a unique id per occupied cell (host side, exact)
+        packed = coords[:, 0]
+        for a in range(1, d):
+            packed = packed * res[a] + coords[:, a]
+        n_occ = len(np.unique(packed))
+        table_size = force_table_size or _next_pow2(
+            max(int(n_occ / load_factor), 16)
+        )
+        h = hash_coords(coords.astype(np.int64), table_size)
+        occ = np.bincount(h, minlength=table_size)
+        needed_cap = _next_pow2(max(int(occ.max()), 1))
+        if force_cap:
+            # caller pre-computed a shared shape; it must be adequate —
+            # exactness over silent truncation.
+            if needed_cap > force_cap:
+                raise GridCapError(
+                    f"points need bucket cap {needed_cap} > forced {force_cap}"
+                )
+            cap = force_cap
+            break
+        cap = needed_cap
+        if table_size * cap <= max_bucket_elems or int(res.max()) == 1:
+            break
+        res = np.maximum(res // 2, 1)  # coarsen (cells grow — always safe)
+    if use_cache:
+        probe_cache["_misses"] = probe_cache.get("_misses", 0) + 1
+        probe_cache[probe_key] = (table_size, cap, tuple(int(r) for r in res))
+    return table_size, cap, res, cell, lo
+
+
+def grid_shape(points, radius: float, *, n_valid: int = 0,
+               max_bucket_elems: int = 1 << 25,
+               load_factor: float = 0.5) -> tuple:
+    """(table_size, cap) that ``build_grid`` would give these arguments,
+    from the host probe alone (no binning)."""
+    pts = np.asarray(points, dtype=np.float32)
+    table_size, cap, _, _, _ = _size_grid(
+        pts[: n_valid or pts.shape[0]], radius,
+        max_bucket_elems=max_bucket_elems, load_factor=load_factor,
+        force_table_size=0, force_cap=0, probe_cache=None,
+    )
+    return table_size, cap
+
+
+def build_grid(
+    points,
+    radius: float,
+    *,
+    device_points=None,
+    max_bucket_elems: int = 1 << 25,
+    load_factor: float = 0.5,
+    force_table_size: int = 0,
+    force_cap: int = 0,
+    n_valid: int = 0,
+    probe_cache: dict = None,
+) -> Grid:
+    """Build a hash grid whose effective cell size is >= ``radius`` per axis.
+
+    ``points`` is the host copy ((N, d) array) the sizing probe reads;
+    ``device_points`` the same cloud as a tensor, binned on its device (the
+    CPU when None).  ``n_valid``: rows beyond it are padding, excluded from
+    the index.  ``probe_cache``: optional per-cloud memo of the sizing
+    probe, keyed by (n_valid, initial res); ``"_hits"`` / ``"_misses"``
+    count lookups.  Ignored under ``force_table_size`` / ``force_cap``,
+    where a cap below what the points need raises ``GridCapError``.
+    """
+    pts_all = np.asarray(points, dtype=np.float32)
+    n, d = pts_all.shape
+    n_valid = n_valid or n
+    table_size, cap, res, cell, lo = _size_grid(
+        pts_all[:n_valid], radius, max_bucket_elems=max_bucket_elems,
+        load_factor=load_factor, force_table_size=force_table_size,
+        force_cap=force_cap, probe_cache=probe_cache,
+    )
 
     res_t = tuple(int(r) for r in res)
     dpts = (

@@ -30,6 +30,17 @@ from repro_torch.workloads import build_knn_graph, dbscan
 fr = build_index(pts, backend="fixed_radius", radius=0.5, device="cpu")
 assert build_knn_graph(fr, 3).n == 400
 assert dbscan(fr, 0.5, 4).labels.shape == (400,)
+import repro_torch.core.partition
+import repro_torch.core.distributed_grid
+from repro_torch import DeviceMesh
+from repro_torch.core.distributed_grid import distributed_trueknn_grid
+
+mesh = DeviceMesh([["cpu"] * 2] * 2, ("data", "model"))
+dist = build_index(pts, backend="distributed", mesh=mesh, device="cpu")
+assert dist.query(pts[:8], KnnSpec(3)).idxs.shape == (8, 3)
+assert distributed_trueknn_grid(pts, 3, mesh)[1].shape == (400, 3)
+sh = build_index(pts, backend="sharded", n_shards=4, device="cpu")
+assert sh.query(pts[:8], KnnSpec(3)).timings["plan"].startswith("sharded")
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
