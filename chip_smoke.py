@@ -68,20 +68,22 @@ at full width through the user API and checks what comes out:
    whose model axis holds the one card at 4 positions (2^20 points a
    shard, ``configs/trueknn.py``'s widths), two ``KnnSpec(8)`` batches of
    2^16 rows, equal bitwise to the brute backend and to a one-position
-   mesh;
+   mesh; round 0's kernel call at the last position (S = 1, shifted self
+   ids) held bitwise against the plain version;
 13. ``distributed_trueknn_grid`` on phase 12's mesh over uniform 2^22 (on
    kitti the reference's shared stacked-grid shape needs up to 2^40 slots
    a shard) and 2^16 rows: distances to TOL and indices up to the order
    of tied neighbors against the dense engine on the same rows, fewer
-   candidate tests than it, host grid builds apart;
+   candidate tests than it, host grid builds apart; the last shard's
+   ``grid_round`` call of the first and the last round held bitwise
+   against the plain grid round on the same ``Grid`` view and rows;
 14. ``build_index(kitti 2^20, backend="sharded", n_shards=8)`` with
    trueknn children on the host: ``KnnSpec(8)`` on two batches of 2^16
    rows (the second on the warm seed), ``HybridSpec(8, r)`` and
    ``RangeSpec(r)`` on phase 5's rows, ``AllPairsSpec(8)``, each held
-   against the monolithic trueknn (phases 4, 5): distances bitwise,
-   indices up to the order of tied neighbors (a grid round orders ties by
-   grid slot, the shard merge by index); pruned visits and child
-   dispatches printed;
+   against the monolithic answer (phases 4, 5) bitwise: distances and
+   indices, the hybrid's found as min(8, trueknn's ball count), the range
+   CSR's offsets; pruned visits and child dispatches printed;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
@@ -1195,7 +1197,42 @@ def phase_distributed(dev, rng, tally):
     log(f"  equal bitwise (distances and indices) to the brute backend "
         f"and to a one-position mesh (rounds={solo.timings['mesh_rounds']}, "
         f"wall_s={solo_s:.4f})")
+    hold_position_round0(dev, index, q, b1.start_radius)
     return mesh
+
+
+def hold_position_round0(dev, index, q, radius):
+    """The kernel call of round 0 at the last model position, as
+    ``make_distributed_knn`` makes it (all 2^16 rows, the threshold, the
+    self ids shifted by the shard's offset), against the plain version on
+    the same tensors, bitwise.  At Q = 2^16 the split rule takes S = 1:
+    the first pass alone, no merge."""
+    import torch
+
+    from repro_torch.kernels.ops import topk_engine
+    from repro_torch.kernels.pairwise_topk import split_plan
+    from repro_torch.kernels.ref import pairwise_topk_ref
+
+    pos = P_MESH - 1
+    pts_l = index._pts_device[pos]
+    nl = pts_l.shape[0]
+    thr = float(np.float32(radius) ** 2)
+    q_l = torch.as_tensor(q, device=dev).contiguous()
+    # external queries carry id -1, shifted to -1 - pos * nl here
+    qid_l = torch.full((q.shape[0],), -1 - pos * nl, dtype=torch.int32,
+                       device=dev)
+    s_used = split_plan(q.shape[0], nl, q.shape[1], 8, "l2", dev)[0]
+    check(s_used == 1, f"round 0 at Q={q.shape[0]}: S={s_used}, not 1")
+    t0 = time.perf_counter()
+    got = topk_engine(q_l, qid_l, pts_l, thr, k=8)
+    want = pairwise_topk_ref(q_l, pts_l, 8, radius2=thr, query_ids=qid_l)
+    torch.cuda.synchronize()
+    err = compare_topk(f"position {pos} round 0", got, want, q_l, pts_l, "l2",
+                       True)
+    log(f"  position {pos} round 0 (Q={q.shape[0]} N={nl} k=8 thr={thr:.6g} "
+        f"qid={-1 - pos * nl}, S={s_used}): kernel bitwise equal to the "
+        f"plain version (max|err|={err:g}, counts max {int(got[2].max())}, "
+        f"{time.perf_counter() - t0:.1f}s)")
 
 
 def phase_distributed_grid(dev, mesh, rng, tally):
@@ -1239,7 +1276,59 @@ def phase_distributed_grid(dev, mesh, rng, tally):
         f"neighbors in another order); host grid builds "
         f"{st['grid_build_seconds']:.4f} s of wall_s={wall:.4f}; launches "
         f"{counts}")
+    hold_shard_rounds(dev, cloud, q, st)
     return wall, st["grid_build_seconds"]
+
+
+def hold_shard_rounds(dev, cloud, q, st):
+    """The last shard's ``grid_round`` call of round 0 and of the last
+    round, as ``make_grid_round`` makes it (a ``Grid`` view of the stacked
+    grids at their shared table and cap; the rows padded to a power of two
+    with +inf rows; out-of-shard self ids = Nl), against the plain grid
+    round on the same view and rows, bitwise."""
+    import torch
+
+    from repro_torch.core.distributed_grid import (_shard_grid,
+                                                   build_stacked_grids,
+                                                   shard_points)
+    from repro_torch.core.fixed_radius import grid_round, grid_round_plain
+
+    shards, n_valid = shard_points(cloud, P_MESH)
+    s = P_MESH - 1
+    nl = shards.shape[1]
+    pts_l = torch.as_tensor(shards[s], device=dev)
+    k = 8
+    for t in (0, len(st["rounds"]) - 1):
+        rd = st["rounds"][t]
+        grids, table, cap = build_stacked_grids(shards, n_valid,
+                                                rd["radius"], device=dev)
+        check((table, cap) == (rd["table"], rd["cap"]),
+              f"round {t}: stacked shape {(table, cap)} is not the run's")
+        grid = _shard_grid(grids, s, table, nl, dev)
+        m = rd["queries"]
+        m_pad = 1 << max(0, (m - 1).bit_length())
+        rows = np.full((m_pad, q.shape[1]), np.inf, np.float32)
+        rows[:m] = q[:m]
+        q_l = torch.as_tensor(rows, device=dev)
+        qid_l = torch.full((m_pad,), nl, dtype=torch.int32, device=dev)
+        r2 = float(np.float32(rd["radius"]) ** 2)
+        res = []
+        for fn in (grid_round, grid_round_plain):
+            out = (torch.empty((m_pad, k), device=dev),
+                   torch.empty((m_pad, k), dtype=torch.int32, device=dev),
+                   torch.empty((m_pad,), dtype=torch.int32, device=dev))
+            tests = torch.zeros(1, dtype=torch.int64, device=dev)
+            fn(pts_l, grid, q_l, qid_l, r2, k, out=out, tests=tests)
+            res.append((out, tests))
+        torch.cuda.synchronize()
+        (a, ta), (b, tb) = res
+        for x, y, name in zip(a, b, ("d2", "idx", "found")):
+            check(torch.equal(x, y), f"shard {s} round {t}: {name} differs")
+        check(ta.item() == tb.item(), f"shard {s} round {t}: tests differ")
+        log(f"  shard {s} round {t} (rows {m} padded to {m_pad}, table "
+            f"{table}, cap {cap}, res {grid.res}): grid_round bitwise equal "
+            f"to the plain version, tests={ta.item()}, found max "
+            f"{int(a[2].max())}")
 
 
 def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
@@ -1272,30 +1361,31 @@ def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
             f"seed {index.stats()['warm_seed'].get('l2')})",
             lambda: index.query(q, KnnSpec(8)))
         want = tk_index.query(q, KnnSpec(8))
-        n = knn_up_to_ties("sharded knn vs trueknn", res.dists, res.idxs,
-                           want.dists, want.idxs)
-        log(f"    vs monolithic trueknn: distances bitwise, indices bitwise "
-            f"but for {n} rows whose tied neighbors come in another order")
+        same_arrays("sharded knn vs trueknn", res, want, ("dists", "idxs"))
+        log("    vs monolithic trueknn: distances and indices bitwise")
     rows5, csr5 = range5
     q5 = kitti_np[rows5]
     res, secs["hybrid"] = run(f"HybridSpec(8, {radius:.6g})",
                               lambda: index.query(q5, HybridSpec(8, radius)))
     want = tk_index.query(q5, HybridSpec(8, radius))
-    n = knn_up_to_ties("sharded hybrid vs trueknn", res.dists, res.idxs,
-                       want.dists, want.idxs)
-    log(f"    vs monolithic trueknn: distances bitwise, indices bitwise but "
-        f"for {n} rows (tie order)")
+    same_arrays("sharded hybrid vs trueknn", res, want, ("dists", "idxs"))
+    # a sharded answer's found is the in-ball count it returns, min(k, ball)
+    # (the brute oracle's); trueknn's is the whole ball
+    check(np.array_equal(res.found, np.minimum(want.found, 8)),
+          "sharded hybrid vs trueknn: found differs from min(8, ball)")
+    log("    vs monolithic trueknn: distances and indices bitwise, found "
+        "equal to min(8, trueknn's ball count)")
     res, secs["range"] = run(f"RangeSpec({radius:.6g})",
                              lambda: index.query(q5, RangeSpec(radius)))
-    n = same_csr_up_to_ties("sharded range vs phase 5", res, csr5)
-    log(f"    vs phase 5's CSR: offsets and distances bitwise, indices "
-        f"bitwise but for {n} rows (tie order); nnz={len(res.idxs)}")
+    same_arrays("sharded range vs phase 5", res, csr5,
+                ("offsets", "idxs", "dists"))
+    log(f"    vs phase 5's CSR: offsets, indices and distances bitwise; "
+        f"nnz={len(res.idxs)}")
     res, secs["all_pairs"] = run("AllPairsSpec(8)",
                                  lambda: index.query(None, AllPairsSpec(8)))
-    n = knn_up_to_ties("sharded all-pairs vs phase 4", res.dists, res.idxs,
-                       b2.dists, b2.idxs)
-    log(f"    vs phase 4's batch 2: distances bitwise, indices bitwise but "
-        f"for {n} rows (tie order); self-local rows "
+    same_arrays("sharded all-pairs vs phase 4", res, b2, ("dists", "idxs"))
+    log(f"    vs phase 4's batch 2: distances and indices bitwise; self-local "
+        f"rows "
         f"{res.timings.get('self_local_rows')}, boundary rows "
         f"{res.timings.get('self_boundary_rows')}")
     s = index.stats()

@@ -56,10 +56,10 @@ class DistributedIndex(NeighborIndex):
     ``max_rounds``, ``point_axis``, ``device`` (the index's own device: its
     resident cloud, the Alg. 2 sampler and the planner's generic routes;
     the mesh's devices must be of its type).  ``use_kernel`` is accepted so
-    cfg dicts written for the reference build this index, and is reported
-    in ``stats()``; it does not choose the engine: the device does, as
-    everywhere in the port (the ``pairwise_topk`` kernel on the card, its
-    plain version on the CPU).
+    cfg dicts written for the reference build this index, and is ignored:
+    the device chooses the engine, as everywhere in the port (the
+    ``pairwise_topk`` kernel on the card, its plain version on the CPU),
+    so ``stats()`` does not report it.
     """
 
     def __init__(
@@ -81,9 +81,9 @@ class DistributedIndex(NeighborIndex):
                 f"mesh devices are {self._mesh.device_type} but the index "
                 f"is on {self._device}"
             )
+        del use_kernel  # accepted for the reference's cfg dicts, ignored
         self._growth = float(growth)
         self._max_rounds = int(max_rounds)
-        self._use_kernel = bool(use_kernel)
         self._point_axis = point_axis
         # the build: shard the cloud over the point axis once, keep it
         # device-resident for the life of the index
@@ -154,6 +154,5 @@ class DistributedIndex(NeighborIndex):
             queries_served=self._queries_served,
             batches=self._batches,
             total_tests=self._total_tests,
-            use_kernel=self._use_kernel,
         )
         return s

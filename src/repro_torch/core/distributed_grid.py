@@ -20,6 +20,7 @@ reference sums float32, exact only below 2^24 a chunk).
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -60,6 +61,33 @@ def shard_points(points: np.ndarray, n_shards: int):
     return out, n_valid
 
 
+def _device_bytes(dev: torch.device) -> int:
+    """Bytes free on ``dev``: the card's free memory and what PyTorch's
+    allocator holds unused; the host's RAM."""
+    if dev.type == "cuda":
+        cached = (torch.cuda.memory_reserved(dev)
+                  - torch.cuda.memory_allocated(dev))
+        return torch.cuda.mem_get_info(dev)[0] + cached
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _check_stacked_bytes(reqs, table_size: int, cap: int, dev) -> None:
+    """Raise ``MemoryError`` before allocating stacked buckets that cannot
+    fit: every shard's (table_size, cap) int32 table, built and then
+    stacked (two copies)."""
+    need = 2 * len(reqs) * table_size * cap * 4
+    free = _device_bytes(dev)
+    if need > free:
+        raise MemoryError(
+            f"stacked grids need {need / 2**30:.1f} GiB of buckets at the "
+            f"shared shape (table {table_size}, cap {cap}), {free / 2**30:.1f}"
+            f" GiB free on {dev}: the shards ask for (table, cap) "
+            f"{sorted(set(reqs))}, and the shared shape is the largest of "
+            f"each; the stacked-grid contract needs shards of one shape "
+            f"(ROADMAP section 3)"
+        )
+
+
 def build_stacked_grids(pts_shards: np.ndarray, n_valid: np.ndarray,
                         radius: float, *, device="cpu"):
     """Per-shard hash grids at a common (table_size, cap) shape, binned on
@@ -78,6 +106,7 @@ def build_stacked_grids(pts_shards: np.ndarray, n_valid: np.ndarray,
     shards_t = torch.as_tensor(pts_shards, device=dev)
     # second pass at the common shape (cap may grow at the shared H; retry)
     while True:
+        _check_stacked_bytes(reqs, table_size, cap, dev)
         try:
             grids = [
                 build_grid(

@@ -281,7 +281,7 @@ def test_distributed_index_stats(ref, index_pair):
     assert s["total_tests"] == int(ref["ix_total_tests"])
     assert sorted((k, str(v)) for k, v in s["mesh_shape"].items()) == \
         [tuple(row) for row in ref["ix_mesh"].tolist()]
-    assert s["use_kernel"] is False and s["device"] == "cpu"
+    assert "use_kernel" not in s and s["device"] == "cpu"
 
 
 def test_default_mesh_and_device_checks():
@@ -289,7 +289,7 @@ def test_default_mesh_and_device_checks():
     index = build_index(pts, backend="distributed", device="cpu",
                         use_kernel=True)
     assert index.stats()["mesh_shape"] == {"model": 1}
-    assert index.stats()["use_kernel"] is True
+    assert "use_kernel" not in index.stats()  # accepted, chooses nothing
     with pytest.raises(ValueError, match="equal shards"):
         build_index(pts[:63], backend="distributed", device="cpu",
                     mesh=DeviceMesh(["cpu"] * 4))
@@ -300,6 +300,21 @@ def test_default_mesh_and_device_checks():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_index(pts, backend="distributed")
+
+
+def test_stacked_grids_that_cannot_fit_raise(monkeypatch):
+    """A shared (table, cap) whose buckets exceed the device's free bytes
+    raises before allocating, naming every shard's own shape."""
+    from repro_torch.core import distributed_grid as dg
+
+    shards, n_valid = dg.shard_points(make_dataset("porto", 1030, seed=2), 8)
+    _, table, cap = dg.build_stacked_grids(shards, n_valid, 0.05)
+    need = 2 * 8 * table * cap * 4
+    monkeypatch.setattr(dg, "_device_bytes", lambda dev: need - 1)
+    with pytest.raises(MemoryError, match=r"shards ask for .*ROADMAP"):
+        dg.build_stacked_grids(shards, n_valid, 0.05)
+    monkeypatch.setattr(dg, "_device_bytes", lambda dev: need)
+    dg.build_stacked_grids(shards, n_valid, 0.05)
 
 
 # -- on the card ------------------------------------------------------------

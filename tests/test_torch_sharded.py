@@ -92,6 +92,7 @@ def _same(got, want, *, tol=False):
         return
     if tol:
         np.testing.assert_allclose(got.dists, want.dists, rtol=TOL, atol=1e-6)
+        assert np.array_equal(np.sort(got.idxs, 1), np.sort(want.idxs, 1))
     else:
         assert np.array_equal(got.dists, want.dists)
         assert np.array_equal(got.idxs, want.idxs)
