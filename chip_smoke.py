@@ -6,9 +6,9 @@
 Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 ``torch.utils.cpp_extension.load`` call), holds each against its plain
 PyTorch version on the card, then drives the port's entry points (the
-trueknn, brute, fixed_radius, distributed and sharded backends, the
-planner's generic routes, all-pairs self-queries and the graph workloads)
-at full width through the user API and checks what comes out:
+trueknn, brute, fixed_radius, distributed, sharded and mutable backends,
+the planner's generic routes, all-pairs self-queries and the graph
+workloads) at full width through the user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -16,11 +16,12 @@ at full width through the user API and checks what comes out:
    main-path shapes (N = 2^20), the split-N path (S > 1 ranges and the
    merge) checked taken where it must be: the sampler's Q = 100, k = 300,
    and exact duplicate points on both sides of every range boundary of the
-   kernel's own split; then a ``row_mask`` that is all zero and one that
-   keeps every third row (the other rows must stay untouched).  Counts
-   exact; values bitwise where both take the diff form (d <= 8), rtol 1e-6
-   for the d > 8 identity form; index sets compared by distance where
-   values are not bitwise;
+   kernel's own split; the ``l2diff`` form at d = 12; then a ``row_mask``
+   that is all zero and one that keeps every third row (the other rows
+   must stay untouched).  Counts exact; values bitwise where both take the
+   diff form (d <= 8, and ``l2diff`` at any d), rtol 1e-6 for the d > 8
+   identity form; index sets compared by distance where values are not
+   bitwise;
 3. grid-round kernel vs plain version on the first three scheduled grids
    of the full cloud (the fine, one-thread-a-query design), 16384 seeded
    queries, and on the collapsed grid whose stencil walks the most slots
@@ -84,10 +85,28 @@ at full width through the user API and checks what comes out:
    against the monolithic answer (phases 4, 5) bitwise: distances and
    indices, the hybrid's found as min(8, trueknn's ball count), the range
    CSR's offsets; pruned visits and child dispatches printed;
+15. the same 8 shards with ``placement="devices"`` on the default mesh
+   (the card): ``KnnSpec(8)`` on phase 14's two batches (the fused rounds:
+   Alg. 2 seed, then the warm seed), cosine ``KnnSpec(8)`` (the per-round
+   path), ``HybridSpec(8, r)``, ``RangeSpec(r)`` and an L1 ``RangeSpec``
+   whose balls need the escalated second dispatch, on phase 5's rows; each
+   bitwise equal to phase 14's answer, the monolithic trueknn's, phase 5's
+   CSR or brute L1; fabric dispatches, host syncs and launches printed per
+   batch; a 6-shard index on ``DeviceMesh([card] * 4)`` rebalanced (answers
+   unchanged bitwise, every position occupied); round 0's call of one slot,
+   the escalation's call of one slot and an ``l2diff`` call at d = 12 held
+   bitwise against the plain version and timed;
+16. ``backend="mutable"`` over a trueknn base of kitti 2^20: 2^14 rows of a
+   second kitti draw inserted (8 sealed brute deltas), 64 ids deleted;
+   ``KnnSpec(8)``, ``HybridSpec(8, r)``, ``RangeSpec(r)`` on phase 5's rows
+   against a trueknn index rebuilt over the live rows (``map_to_stable``;
+   distances bitwise, indices up to the order of tied neighbors, which
+   follows each grid); after ``compact()`` bitwise, ties included; one
+   background compaction, joined, its answers during and after equal;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-14) and read
+are zeroed just before each entry point (phases 4, 5 and 9-16) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -254,6 +273,12 @@ def phase_pairwise(dev, kitti, porto, rng):
     sub_n = l2_normalize(sub)
     cases.append(("cosine d3 k64", sub_n[srow + 7], none(512, sub), sub_n,
                   "l2", 64, 2.0 * 0.001))
+    # the placed fabric's squared L2 past d = 8 (the diff chain), on a cloud
+    # of its own seed so the shared draws of later phases stay as they were
+    wide12 = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(N_WIDE, 12)).astype(np.float32), device=dev)
+    cases.append(("l2diff d12 k9", wide12[wrow] + 0.01, none(512, wide12),
+                  wide12, "l2diff", 9, 20.0))
     # exact duplicates of point 5 on both sides of every range boundary of
     # the kernel's own split: equal distances across two ranges, which the
     # merge must give to the lower index
@@ -1353,6 +1378,7 @@ def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
         return res, wall
 
     secs = {}
+    knn_batches = []
     for b in (1, 2):
         rows = np.sort(rng.choice(N_MAIN, DIST_ROWS, replace=False))
         q = kitti_np[rows]
@@ -1363,6 +1389,7 @@ def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
         want = tk_index.query(q, KnnSpec(8))
         same_arrays("sharded knn vs trueknn", res, want, ("dists", "idxs"))
         log("    vs monolithic trueknn: distances and indices bitwise")
+        knn_batches.append((q, res))
     rows5, csr5 = range5
     q5 = kitti_np[rows5]
     res, secs["hybrid"] = run(f"HybridSpec(8, {radius:.6g})",
@@ -1393,6 +1420,312 @@ def phase_sharded(dev, kitti_np, tk_index, b2, range5, radius, rng, tally):
         f"{s['shard_visits'] + s['shard_visits_pruned']} (query, shard) "
         f"visits (rate {s['prune_rate']}), {s['child_dispatches']} child "
         f"dispatches, {s['shard_rounds']} shared-cut rounds")
+    return secs, knn_batches
+
+
+# -- phases 15-16: the placed shard fabric and the mutable index ------------
+
+
+def hold_slot(dev, tag, q, blk, mask, k, metric, thr):
+    """One fabric slot's ``pairwise_topk`` call (the rows ``mask``
+    selects, outputs pre-filled with (inf, B) and count 0, no self ids)
+    against the plain version on the same tensors, bitwise; both timed.
+    Returns a ``shape_row``."""
+    import torch
+
+    from repro_torch.kernels.ops import topk_engine
+    from repro_torch.kernels.ref import pairwise_topk_ref
+
+    m, n = q.shape[0], blk.shape[0]
+    none = torch.full((m,), -1, dtype=torch.int32, device=dev)
+
+    def fresh():
+        return (torch.full((m, k), math.inf, device=dev),
+                torch.full((m, k), n, dtype=torch.int32, device=dev),
+                torch.zeros((m,), dtype=torch.int32, device=dev))
+
+    got, want = fresh(), fresh()
+    topk_engine(q, none, blk, thr, k=k, metric=metric, row_mask=mask,
+                out=got)
+    pairwise_topk_ref(q, blk, k, radius2=thr, query_ids=none, metric=metric,
+                      row_mask=mask, out=want)
+    torch.cuda.synchronize()
+    err = compare_topk(tag, got, want, q, blk, metric, True)
+    sync = torch.cuda.synchronize
+    ms = median_ms(lambda: topk_engine(q, none, blk, thr, k=k, metric=metric,
+                                       row_mask=mask, out=fresh()), 3, sync)
+    plain = median_ms(lambda: pairwise_topk_ref(
+        q, blk, k, radius2=thr, query_ids=none, metric=metric, row_mask=mask,
+        out=fresh()), 1, sync, warmup=False)
+    active = int(mask.sum())
+    d = q.shape[1]
+    # the selected rows' work: each against every point of the slot, 3d
+    # flops a pair (d subtractions and d multiply-adds, or d abs-adds)
+    b = bound(m * d * 4 + n * d * 4 + m + active * (k * 8 + 4),
+              active * n * 3 * d)
+    log(f"  {tag}: Q={m} ({active} rows selected) N={n} d={d} k={k} "
+        f"{metric}: kernel bitwise equal to the plain version (max|err|="
+        f"{err:g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]})")
+    return shape_row(f"{tag} Q={m} active={active} N={n} d={d} k={k} "
+                     f"{metric}", ms, plain, b, active_rows=active), err
+
+
+def phase_placed(dev, kitti_np, tk_index, knn14, range5, radius, tally):
+    """Phase 15: ``backend="sharded", placement="devices"`` (8 morton
+    trueknn shards of kitti 2^20 on the default mesh, one card): the fused
+    kNN rounds on phase 14's two batches, the per-round path (cosine),
+    hybrid and range, the L1 range's escalated dispatch; each answer held
+    bitwise against phase 14's, the monolithic trueknn's, phase 5's CSR or
+    brute L1.  Then a 6-shard index on four positions of the card is
+    rebalanced, and one slot call of round 0, the escalation's slot call
+    and an ``l2diff`` call at d = 12 are held against the plain version
+    and timed."""
+    import torch
+
+    from repro_torch import (DeviceMesh, HybridSpec, KnnSpec, RangeSpec,
+                             build_index)
+    from repro_torch.api import get_metric
+    from repro_torch.api.planner import shard_visit_mask
+
+    t0 = time.perf_counter()
+    index = build_index(kitti_np, backend="sharded", n_shards=8,
+                        child_backend="trueknn", placement="devices",
+                        device=dev)
+    log(f"  built in {time.perf_counter() - t0:.2f}s; projected placement "
+        f"{index.stats()['placement']}")
+    secs = {}
+
+    def run(tag, fn, idx=index):
+        fab = idx._placed
+        d0, s0 = (fab.dispatches, fab.syncs) if fab else (0, 0)
+        res, wall, counts = counted(f"placed {tag}", fn, tally,
+                                    need=("pairwise_topk",))
+        fab = idx._placed
+        rounds = f" rounds={len(res.rounds)}" if getattr(res, "rounds",
+                                                         None) else ""
+        log(f"  {tag}: plan={res.timings['plan']}{rounds} fabric "
+            f"dispatches={fab.dispatches - d0} host syncs="
+            f"{fab.syncs - s0} wall_s={wall:.4f} launches {counts}")
+        secs[tag] = {"wall_s": wall, "launches": counts["pairwise_topk"],
+                     "syncs": fab.syncs - s0}
+        return res
+
+    batches = []
+    for b, (q, want) in enumerate(knn14, 1):
+        res = run(f"KnnSpec(8) batch {b}", lambda: index.query(q, KnnSpec(8)))
+        same_arrays(f"placed knn batch {b} vs phase 14", res, want,
+                    ("dists", "idxs", "found"))
+        log(f"    vs phase 14's host fabric: distances, indices and found "
+            f"bitwise; round radii {[round(r.radius, 6) for r in res.rounds]}")
+        batches.append(res)
+    rows5, csr5 = range5
+    q5 = kitti_np[rows5]
+    res = run("cosine KnnSpec(8)",
+              lambda: index.query(q5, KnnSpec(8), metric="cosine"))
+    want = tk_index.query(q5, KnnSpec(8), metric="cosine")
+    same_arrays("placed cosine vs trueknn", res, want, ("dists", "idxs"))
+    log("    vs the monolithic trueknn's cosine (l2_view): bitwise")
+    res = run(f"HybridSpec(8, {radius:.6g})",
+              lambda: index.query(q5, HybridSpec(8, radius)))
+    want = tk_index.query(q5, HybridSpec(8, radius))
+    same_arrays("placed hybrid vs trueknn", res, want, ("dists", "idxs"))
+    check(np.array_equal(res.found, np.minimum(want.found, 8)),
+          "placed hybrid: found differs from min(8, ball)")
+    log("    vs monolithic trueknn: distances and indices bitwise, found "
+        "min(8, ball)")
+    res = run(f"RangeSpec({radius:.6g})",
+              lambda: index.query(q5, RangeSpec(radius)))
+    same_arrays("placed range vs phase 5", res, csr5,
+                ("offsets", "idxs", "dists"))
+    log(f"    vs phase 5's CSR: bitwise, nnz={len(res.idxs)}")
+    r_l1 = 2.0 * radius  # balls of more than 32 rows in some shard
+    res = run(f"L1 RangeSpec({r_l1:.6g})",
+              lambda: index.query(q5, RangeSpec(r_l1), metric="l1"))
+    check(res.timings["fused_dispatches"] == 2,
+          "the L1 range did not take the escalated dispatch")
+    brute = build_index(kitti_np, backend="brute", device=dev)
+    want = brute.query(q5, RangeSpec(r_l1), metric="l1")
+    same_arrays("placed L1 range vs brute", res, want,
+                ("offsets", "idxs", "dists"))
+    log(f"    escalated (2 dispatches); vs brute L1: bitwise, nnz="
+        f"{len(res.idxs)}, max row {int(res.counts.max())}")
+    st = index.stats()
+    log(f"  pruned {st['shard_visits_pruned']} of "
+        f"{st['shard_visits'] + st['shard_visits_pruned']} (query, shard) "
+        f"visits (rate {st['prune_rate']}); placement {st['placement']}")
+    secs["prune_rate"] = st["prune_rate"]
+
+    mesh = DeviceMesh([dev] * 4)
+    six = build_index(kitti_np, backend="sharded", n_shards=6,
+                      child_backend="trueknn", placement="devices",
+                      device=dev, mesh=mesh)
+    before = run("6 shards on 4 positions, KnnSpec(8)",
+                 lambda: six.query(q5, KnnSpec(8)), six)
+    occ0 = six.stats()["placement"]["device_occupancy"]
+    check(six.rebalance() is True, "rebalance found no free slot")
+    after = run("after rebalance, KnnSpec(8)",
+                lambda: six.query(q5, KnnSpec(8)), six)
+    same_arrays("rebalance", before, after, ("dists", "idxs", "found"))
+    same_arrays("rebalanced vs trueknn", after,
+                tk_index.query(q5, KnnSpec(8)), ("dists", "idxs"))
+    occ = six.stats()["placement"]["device_occupancy"]
+    check(len(occ) == 4 and min(occ) > 0 and sum(occ) == N_MAIN,
+          f"occupancy after rebalance {occ}")
+    log(f"  rebalance: occupancy {occ0} -> {occ}; answers bitwise before "
+        f"and after, and equal to the monolithic trueknn")
+
+    # round 0 of batch 1, the slot with the most selected rows
+    fab = index._placed
+    q, _ = knn14[0]
+    r0 = np.float32(batches[0].rounds[0].radius)
+    b32 = index._bounds(q, get_metric("l2")).astype(np.float32)
+    qd = torch.as_tensor(q, device=dev)
+    blocks = fab._placed_blocks("raw")
+    j = max(range(fab.n_slots), key=lambda j: int((b32[:, fab.slots[j][0]]
+                                                   <= r0).sum()))
+    mask = torch.as_tensor(b32[:, fab.slots[j][0]] <= r0,
+                           device=dev).to(torch.uint8)
+    slot_row, err1 = hold_slot(dev, f"placed slot {j} round 0", qd,
+                               blocks[j], mask, 8, "l2diff", math.inf)
+    # the L1 range's escalated call on its fullest slot, at the path's k:
+    # the next power of two of the fullest (row, shard) ball
+    visit = shard_visit_mask(index._bounds(q5, get_metric("l1")), r_l1)
+    j1 = max(range(fab.n_slots), key=lambda j: int(visit[:, fab.slots[j][0]]
+                                                   .sum()))
+    rows = np.repeat(np.arange(ROWS), np.diff(want.offsets))
+    ball = np.bincount(rows * index.n_shards + index._part.assign[want.idxs],
+                       minlength=ROWS * index.n_shards)
+    k_esc = min(1 << (int(ball.max()) - 1).bit_length(), fab.block_rows)
+    check(k_esc > 32, f"escalation k {k_esc}")
+    mask1 = torch.as_tensor(visit[:, fab.slots[j1][0]],
+                            device=dev).to(torch.uint8)
+    esc_row, err2 = hold_slot(dev, f"range escalation slot {j1}",
+                              torch.as_tensor(q5, device=dev), blocks[j1],
+                              mask1, k_esc, "l1", float(r_l1))
+    wide = torch.as_tensor(np.random.default_rng(13).normal(
+        size=(1 << 17, 12)).astype(np.float32), device=dev)
+    w_rows = torch.as_tensor(np.random.default_rng(14).choice(
+        1 << 17, ROWS, replace=False), device=dev)
+    d12_row, err3 = hold_slot(dev, "l2diff d=12", wide[w_rows] + 0.01, wide,
+                              torch.ones(ROWS, dtype=torch.uint8,
+                                         device=dev), 9, "l2diff", 20.0)
+    return secs, [slot_row, esc_row, d12_row], max(err1, err2, err3)
+
+
+def phase_mutable(dev, kitti_np, range5, radius, tally):
+    """Phase 16: ``backend="mutable"`` over a trueknn base of kitti 2^20:
+    2^14 inserted rows of a second kitti draw (8 sealed 2048-row brute
+    deltas), 64 deletes (32 base ids, 32 inserted); ``KnnSpec(8)``,
+    ``HybridSpec(8, r)`` and ``RangeSpec(r)`` on phase 5's rows held
+    against a trueknn index rebuilt over the live rows (``map_to_stable``),
+    again after ``compact()``, and one background compaction."""
+    import threading
+
+    from repro_torch import (HybridSpec, KnnSpec, RangeSpec, build_index,
+                             make_dataset, make_mutable, map_to_stable)
+
+    q5 = kitti_np[range5[0]]
+    secs = {}
+    mut = build_index(kitti_np, backend="mutable", base_backend="trueknn",
+                      delta_rows=2048, auto_compact="off", device=dev)
+    extra = make_dataset("kitti", 1 << 14, seed=1)
+    t0 = time.perf_counter()
+    ids = np.concatenate([mut.insert(extra[i:i + 2048])
+                          for i in range(0, 1 << 14, 2048)])
+    secs["inserts"] = time.perf_counter() - t0
+    rng = np.random.default_rng(16)
+    dead = np.concatenate([rng.choice(N_MAIN, 32, replace=False),
+                           rng.choice(ids, 32, replace=False)])
+    check(mut.delete(dead) == 64, "64 deletes")
+    st = mut.stats()
+    check(st["delta_shards"] == 8 and st["tombstones"] == 64,
+          f"mutable state {st}")
+    log(f"  {len(ids)} rows inserted in {secs['inserts']:.4f}s (8 sealed "
+        f"2048-row brute deltas), 64 ids deleted; n_points={mut.n_points} "
+        f"sentinel={mut.sentinel}")
+    specs = [("KnnSpec(8)", KnnSpec(8)),
+             (f"HybridSpec(8, {radius:.6g})", HybridSpec(8, radius)),
+             (f"RangeSpec({radius:.6g})", RangeSpec(radius))]
+
+    def run(tag, spec, need, idx=mut):
+        res, wall, counts = counted(f"mutable {tag}",
+                                    lambda: idx.query(q5, spec), tally,
+                                    need=need)
+        log(f"  {tag}: plan={res.timings['plan']} wall_s={wall:.4f} "
+            f"launches {counts}")
+        secs[tag] = wall
+        return res
+
+    got = {tag: run(tag, spec, ("grid_round", "pairwise_topk"))
+           for tag, spec in specs}
+    live_pts, live_ids = mut.snapshot()
+    t0 = time.perf_counter()
+    rebuild = build_index(live_pts, backend="trueknn", device=dev)
+    want = {tag: map_to_stable(rebuild.query(q5, spec), live_ids,
+                               mut.sentinel) for tag, spec in specs}
+    log(f"  trueknn rebuilt over the {len(live_ids)} live rows and queried "
+        f"in {time.perf_counter() - t0:.2f}s")
+
+    def hold(stage, res_of, exact):
+        for tag, spec in specs:
+            a, b = res_of[tag], want[tag]
+            if isinstance(spec, RangeSpec):
+                moved = same_csr_up_to_ties(f"{stage} {tag}", a, b)
+            else:
+                moved = knn_up_to_ties(f"{stage} {tag}", a.dists, a.idxs,
+                                       b.dists, b.idxs)
+            if isinstance(spec, HybridSpec):
+                check(np.array_equal(a.found, np.minimum(b.found, 8)),
+                      f"{stage} {tag}: found is not min(8, live ball)")
+            check(not exact or moved == 0,
+                  f"{stage} {tag}: {moved} rows list ties in another order")
+            log(f"    {stage} {tag} vs the rebuild: distances bitwise, "
+                f"indices bitwise {'' if moved == 0 else 'up to tie order '}"
+                f"({moved} rows list tied neighbors in another order)")
+
+    hold("with deltas", got, exact=False)
+    t0 = time.perf_counter()
+    check(mut.compact(), "compact() refused")
+    secs["compact"] = time.perf_counter() - t0
+    st = mut.stats()
+    check(st["delta_shards"] == 0 and st["tombstones"] == 0
+          and st["base_rows"] == len(live_ids), f"after compact {st}")
+    log(f"  compact() in {secs['compact']:.4f}s: base_rows="
+        f"{st['base_rows']}, generation {st['generation']}")
+    got = {tag: run(f"{tag} after compact", spec, ("grid_round",))
+           for tag, spec in specs}
+    hold("compacted", got, exact=True)
+
+    # background: the second 2048-row insert makes a compaction due; the
+    # rebuild is parked before its swap while the pre-swap snapshot (the
+    # base and two deltas) answers, then released and joined
+    bg = make_mutable(rebuild, delta_rows=2048, compact_min_rows=4096,
+                      compact_ratio=0.001, auto_compact="background")
+    built, release = threading.Event(), threading.Event()
+
+    def parked(_index):
+        built.set()
+        release.wait(timeout=300)
+
+    bg._on_compact_built = parked
+    for i in range(0, 4096, 2048):
+        bg.insert(extra[i:i + 2048] + np.float32(0.001))
+    check(built.wait(timeout=300), "the background compaction never ran")
+    before = bg.query(q5, KnnSpec(8))
+    t0 = time.perf_counter()
+    release.set()
+    bg._bg.join(timeout=300)
+    secs["background_swap"] = time.perf_counter() - t0
+    after = bg.query(q5, KnnSpec(8))
+    st = bg.stats()
+    check(st["compactions"] == 1 and st["delta_shards"] == 0,
+          f"background compaction {st}")
+    moved = knn_up_to_ties("background compaction", after.dists, after.idxs,
+                           before.dists, before.idxs)
+    log(f"  background compaction of 4096 inserted rows: answers before the "
+        f"swap (base + 2 deltas) and after (one base) equal: distances "
+        f"bitwise, {moved} rows list tied neighbors in another order")
     return secs
 
 
@@ -1468,11 +1801,23 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 14: sharded (placement='host') over kitti 2^20, 8 trueknn "
         "shards")
-    sharded_s = phase_sharded(dev, kitti_np, index, b2, range5, radius, rng,
-                              tally)
+    sharded_s, knn14 = phase_sharded(dev, kitti_np, index, b2, range5,
+                                     radius, rng, tally)
     log(f"  phase 14 took {time.perf_counter() - t0:.1f}s; seconds "
         f"{json.dumps(sharded_s)}")
-    log(f"  phases 9-14 launches {tally}")
+    t0 = time.perf_counter()
+    log("phase 15: sharded (placement='devices') over kitti 2^20, 8 trueknn "
+        "shards on one card")
+    placed_s, placed_rows, placed_err = phase_placed(
+        dev, kitti_np, index, knn14, range5, radius, tally)
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f}s; per batch "
+        f"{json.dumps(placed_s)}")
+    t0 = time.perf_counter()
+    log("phase 16: mutable over a trueknn base of kitti 2^20")
+    mutable_s = phase_mutable(dev, kitti_np, range5, radius, tally)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f}s; seconds "
+        f"{json.dumps(mutable_s)}")
+    log(f"  phases 9-16 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1486,20 +1831,20 @@ def main() -> int:
             "replaces": "src/repro/kernels/pairwise_topk.py:181",
             "launches": main_counts["pairwise_topk"]
             + range_counts["pairwise_topk"] + tally["pairwise_topk"],
-            "max_abs_err": max(pw_err, range_err),
+            "max_abs_err": max(pw_err, range_err, placed_err),
             "ms": t_k,
             "plain_ms": t_p,
             "bound_ms": pw_b[0],
             "bound_by": pw_b[1],
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
-                        "phase 11", "phase 12"],
+                        "phase 11", "phase 12", "phase 15"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
                 for tag, t in (("Q=4096 N=2^20 d=3 k=32 range", pw_t),
                                ("Q=100 N=2^20 d=3 k=5 sampler", samp_t))
-            ],
+            ] + placed_rows,
         },
         {
             "name": "grid_round",
@@ -1515,7 +1860,8 @@ def main() -> int:
             "bound_by": g_b[1],
             "library_ms": None,
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
-                        "phase 10", "phase 11", "phase 13", "phase 14"],
+                        "phase 10", "phase 11", "phase 13", "phase 14",
+                        "phase 16"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

@@ -8,10 +8,12 @@ is the reference and stays as it is).
     res = index.query(None, KnnSpec(8))                  # self-query
 
 Backends ``brute``, ``fixed_radius``, ``trueknn``, ``distributed``
-(points sharded over a ``DeviceMesh``) and ``sharded`` (a spatially
-partitioned composite, ``placement="host"``) answer every spec and metric
-through the planner; ``repro_torch.workloads`` builds kNN graphs and
-DBSCAN clusterings on top.  Indexes live on the card by default
+(points sharded over a ``DeviceMesh``), ``sharded`` (a spatially
+partitioned composite; ``placement="devices"`` pins its shards to a 1-D
+``DeviceMesh``) and ``mutable`` (inserts and deletes over any of them)
+answer every spec and metric through the planner;
+``repro_torch.workloads`` builds kNN graphs and DBSCAN clusterings on
+top.  Indexes live on the card by default
 and run the hand-written CUDA kernels (``csrc/``); ``device="cpu"`` runs
 their plain PyTorch versions.  This package imports torch, numpy and the
 standard library only.
@@ -19,6 +21,7 @@ standard library only.
 
 from .api import (
     AllPairsSpec,
+    CompactionPolicy,
     DeviceMesh,
     HybridSpec,
     KnnSpec,
@@ -27,6 +30,8 @@ from .api import (
     RangeSpec,
     available_backends,
     build_index,
+    make_mutable,
+    map_to_stable,
 )
 from .core.datasets import make_dataset
 from .core.result import KNNResult, RangeResult, RoundStats
@@ -34,6 +39,9 @@ from .core.result import KNNResult, RangeResult, RoundStats
 __all__ = [
     "build_index",
     "available_backends",
+    "make_mutable",
+    "map_to_stable",
+    "CompactionPolicy",
     "DeviceMesh",
     "NeighborIndex",
     "QuerySpec",

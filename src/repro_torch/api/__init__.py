@@ -8,11 +8,14 @@
     plan = index.prepare(KnnSpec(k=8)); plan(batch)   # plan once, run many
 
 Same surface as ``repro.api`` for the ported backends (``brute``,
-``fixed_radius``, ``trueknn``, ``distributed`` on a ``DeviceMesh``, and
-``sharded`` with ``placement="host"``) and every planner route (native
-hooks, ``knn_fallback``, ``knn_filter``, ``knn_sweep``, ``l2_view``,
-``brute_metric``, ``all_pairs``, shard pruning), plus the ``device``
-build knob.
+``fixed_radius``, ``trueknn``, ``distributed`` on a ``DeviceMesh``,
+``sharded`` with ``placement="host"`` or ``"devices"``, and ``mutable``)
+and every planner route (native hooks, ``knn_fallback``, ``knn_filter``,
+``knn_sweep``, ``l2_view``, ``brute_metric``, ``all_pairs``, shard
+pruning), plus the ``device`` build knob.  For mutation,
+``backend="mutable"`` (or ``make_mutable(index)``, which adopts a built
+index with no rebuild) composes an immutable base with brute delta
+shards and tombstones — see ``repro_torch.api.mutable``.
 """
 
 from ..core.distributed import DeviceMesh
@@ -28,6 +31,7 @@ from .query import AllPairsSpec, HybridSpec, KnnSpec, QuerySpec, RangeSpec
 
 from . import backends  # registers the built-in backends  # noqa: E402
 from .index import NeighborIndex, build_index
+from .mutable import CompactionPolicy, make_mutable, map_to_stable
 from .plan import PlanContext, QueryPlan
 from .registry import available_backends, get_backend, register_backend
 
@@ -48,6 +52,9 @@ __all__ = [
     "normalize_rows",
     "NeighborIndex",
     "build_index",
+    "CompactionPolicy",
+    "make_mutable",
+    "map_to_stable",
     "QueryPlan",
     "PlanContext",
     "available_backends",

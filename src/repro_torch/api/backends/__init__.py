@@ -9,17 +9,19 @@ Importing this package registers:
                 (paper Alg. 3; the serving default)
   distributed   points sharded over a ``DeviceMesh``, hypercube top-k merge
   sharded       spatially-partitioned composite over child indexes, with
-                radius-aware shard pruning (``placement="host"``)
-
-The reference's ``mutable`` backend and the sharded backend's
-``placement="devices"`` are not ported yet.
+                radius-aware shard pruning (``placement="host"``, or
+                ``"devices"``: the shards placed on a 1-D ``DeviceMesh``)
+  mutable       LSM composite over any immutable base: insert/delete on a
+                resident index, brute delta shards, tombstones,
+                policy-driven compaction (see ``repro_torch.api.mutable``)
 """
 
 from .brute import BruteIndex
 from .distributed import DistributedIndex
 from .fixed_radius import FixedRadiusIndex
+from .mutable import MutableIndex
 from .sharded import PRUNE_SLACK, ShardedIndex
 from .trueknn import TrueKNNIndex
 
 __all__ = ["BruteIndex", "DistributedIndex", "FixedRadiusIndex",
-           "ShardedIndex", "PRUNE_SLACK", "TrueKNNIndex"]
+           "MutableIndex", "ShardedIndex", "PRUNE_SLACK", "TrueKNNIndex"]

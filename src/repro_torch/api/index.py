@@ -64,6 +64,7 @@ class NeighborIndex(abc.ABC):
         #: the resident cloud on the index's device
         self._pts_t = torch.from_numpy(pts).to(self._device)
         self._metric_views: dict = {}  # metric name -> companion index
+        self._generation = 0
 
     # -- introspection ----------------------------------------------------
 
@@ -86,8 +87,11 @@ class NeighborIndex(abc.ABC):
 
     @property
     def generation(self) -> int:
-        """Mutation counter; 0 for the life of an immutable backend."""
-        return 0
+        """Monotone mutation counter: 0 for the life of an immutable
+        backend; the mutable composite bumps it on every insert / delete /
+        compaction, and a ``QueryPlan`` prepared at another generation
+        re-prepares (``repro_torch.api.plan``)."""
+        return self._generation
 
     @property
     def sentinel(self) -> int:
@@ -108,6 +112,27 @@ class NeighborIndex(abc.ABC):
             "metric_views": sorted(self._metric_views),
             "device": str(self._device),
         }
+
+    # -- mutation (mutable composite only) --------------------------------
+
+    def insert(self, points) -> np.ndarray:
+        """Add points to the resident cloud.  Immutable backends raise;
+        build with ``backend="mutable"`` (or wrap an existing index via
+        ``repro_torch.api.mutable.make_mutable``) for streaming writes."""
+        raise NotImplementedError(
+            f"backend {self.backend_name!r} is immutable; build with "
+            "backend='mutable' or wrap it: "
+            "repro_torch.api.mutable.make_mutable(index)"
+        )
+
+    def delete(self, ids) -> int:
+        """Remove points by dataset id.  Immutable backends raise; see
+        :meth:`insert`."""
+        raise NotImplementedError(
+            f"backend {self.backend_name!r} is immutable; build with "
+            "backend='mutable' or wrap it: "
+            "repro_torch.api.mutable.make_mutable(index)"
+        )
 
     # -- the hot path -----------------------------------------------------
 

@@ -10,7 +10,10 @@ data; ``explain()`` returns the structured route tree.  With
 ``canonical_shapes`` each call pads the query count up to a power of two
 (padding rows are copies of row 0, sliced off before the caller sees the
 answer) and counts shape buckets in ``cache_stats()``, as the reference
-does, so the two packages report the same plan bookkeeping.
+does, so the two packages report the same plan bookkeeping.  A plan
+prepared at one index ``generation`` re-prepares when the index has
+mutated since (the mutable composite), and counts it in
+``invalidations``.
 """
 
 from __future__ import annotations
@@ -79,14 +82,29 @@ class QueryPlan:
         self.canonical_shapes = bool(canonical_shapes)
         self.root = build_plan(index, spec, self.metric)
         self.ctx = PlanContext(self, canonical_shapes=self.canonical_shapes)
+        #: index generation this plan's route tree was built against
         self.generation = int(index.generation)
+        #: times the route tree was rebuilt because the index mutated
+        self.invalidations = 0
         self._buckets: dict = {}  # bucket key -> execution count
         self._hits = 0
         self._misses = 0
         self.executions = 0
 
+    def _check_generation(self) -> None:
+        """Staleness guard: once the index has mutated, rebuild the route
+        tree (same spec and metric) and reset the shape buckets; the
+        cumulative hit/miss counters are kept."""
+        gen = int(self.index.generation)
+        if gen != self.generation:
+            self.root = build_plan(self.index, self.spec, self.metric)
+            self.generation = gen
+            self.invalidations += 1
+            self._buckets.clear()
+
     def __call__(self, queries):
         """Execute the prepared plan; returns KNNResult or RangeResult."""
+        self._check_generation()
         self.executions += 1
         queries = resolve_self_queries(self.index, queries)
         if self.index.n_points == 0:
@@ -141,7 +159,7 @@ class QueryPlan:
             "hits": self._hits,
             "misses": self._misses,
             "hit_rate": round(self._hits / looked, 4) if looked else 0.0,
-            "invalidations": 0,
+            "invalidations": self.invalidations,
         }
 
     def __repr__(self) -> str:

@@ -16,7 +16,8 @@ extern "C" {
 // their outputs left untouched).  Partial outputs, split-major: part_d /
 // part_i (splits, nq, k) f32 / i32, part_c (splits, nq) i32; with
 // splits == 1 they may be the final outputs themselves.  metric: 0 = l2
-// (squared), 1 = l1, 2 = linf.
+// (squared), 1 = l1, 2 = linf, 3 = l2diff (squared, the diff form at any
+// d).
 int pairwise_topk_launch(const float* q, const int* qid, const float* p,
                          const unsigned char* row_mask, int nq, int n, int d,
                          int k, int splits, int span, float thr, int metric,

@@ -47,6 +47,12 @@
 //                FMA chain (no tensor cores, no TF32).
 //   L1:          sequential sum of |q_a - p_a|.
 //   Linf:        running max of |q_a - p_a|.
+//   L2 diff (metric 3, "l2diff"): the d <= 8 L2 chain at ANY d -- the
+//                placed shard fabric's squared-L2 form, which the JAX
+//                reference computes as sum(diff * diff) at every d.  At
+//                d <= 8 it is the L2 kernel itself; above, the query row is
+//                read from global memory (as the identity form reads it) and
+//                the chain runs over the staged (tp, d) tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +69,7 @@ constexpr int kTileFloats = 8192;  // 32 KB of shared memory per block
 constexpr int kMaxTile = 2048;
 constexpr int kMergeThreads = 128;
 constexpr int kLowD = 8;
-enum { kL2 = 0, kL1 = 1, kLinf = 2 };
+enum { kL2 = 0, kL1 = 1, kLinf = 2, kL2Diff = 3 };
 
 template <int METRIC>
 __device__ __forceinline__ float lowd_dist(const float (&qv)[kLowD],
@@ -104,6 +110,15 @@ __device__ __forceinline__ float l2_dist4(const float (&qv)[kLowD],
 template <int METRIC>
 __device__ __forceinline__ float highd_dist(const float* qr, float qn,
                                             const float* pv, float pn, int d) {
+  if (METRIC == kL2Diff) {
+    float df = __fsub_rn(qr[0], pv[0]);
+    float acc = __fmul_rn(df, df);
+    for (int a = 1; a < d; ++a) {
+      df = __fsub_rn(qr[a], pv[a]);
+      acc = __fmaf_rn(df, df, acc);
+    }
+    return acc;
+  }
   if (METRIC == kL2) {
     float cross = __fmul_rn(qr[0], pv[0]);
     for (int a = 1; a < d; ++a) cross = __fmaf_rn(qr[a], pv[a], cross);
@@ -124,9 +139,11 @@ __device__ __forceinline__ float sq_norm(const float* v, int d) {
 }
 
 // FORM: 2 or 3 = L2 at that d on float4 tiles; 0 = any d <= 8 on (tp, d)
-// tiles; -1 = d > 8 (identity form for L2).
+// tiles; -1 = d > 8 (identity form for L2, the diff chain for L2 diff).
 constexpr int form_of(int metric, int d) {
-  return metric == kL2 && (d == 2 || d == 3) ? d : d <= kLowD ? 0 : -1;
+  return (metric == kL2 || metric == kL2Diff) && (d == 2 || d == 3) ? d
+         : d <= kLowD                                               ? 0
+                                                                    : -1;
 }
 
 // Query rows a warp serves for k <= 32: four where the tile holds float4
@@ -222,9 +239,11 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
   const int lo = blockIdx.y * span;
   const int hi = min(n, lo + span);
 
-  // one chunk of 32 candidates; full_chunk: all 32 are in the range
-  auto chunk = [&](int base, int c0, bool full_chunk) {
-    const bool valid = full_chunk || c0 + lane < hi - base;
+  // one chunk of 32 candidates of the m staged in the tile; full_chunk:
+  // all 32 are staged (a tile of a generic form holds tp rows, which need
+  // not be a multiple of 32, so the last chunk of any tile may be short)
+  auto chunk = [&](int base, int m, int c0, bool full_chunk) {
+    const bool valid = full_chunk || c0 + lane < m;
     const int j = valid ? c0 + lane : 0;  // the rest reads a staged row
     float dist[QPW];
     bool pass = false;
@@ -274,8 +293,8 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
     const int m = min(tp, hi - base);
     stage_tile<METRIC, FORM>(p, base, m, d, smem4, tile, norms);
     int c0 = 0;
-    for (; c0 + 32 <= m; c0 += 32) chunk(base, c0, true);
-    if (c0 < m) chunk(base, c0, false);
+    for (; c0 + 32 <= m; c0 += 32) chunk(base, m, c0, true);
+    if (c0 < m) chunk(base, m, c0, false);
   }
 
 #pragma unroll
@@ -468,6 +487,9 @@ extern "C" int pairwise_topk_launch(const float* q, const int* qid,
       return launch_metric<kL1>(splits, smem, s, a);
     case kLinf:
       return launch_metric<kLinf>(splits, smem, s, a);
+    case kL2Diff:  // at d <= 8 the L2 kernel runs this very chain
+      return d <= kLowD ? launch_metric<kL2>(splits, smem, s, a)
+                        : launch_form<kL2Diff, -1>(splits, smem, s, a);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,7 +21,7 @@ from .build import count_launch, extension
 
 __all__ = ["pairwise_topk_cuda", "choose_splits", "split_plan", "METRIC_IDS"]
 
-METRIC_IDS = {"l2": 0, "l1": 1, "linf": 2}
+METRIC_IDS = {"l2": 0, "l1": 1, "linf": 2, "l2diff": 3}
 
 BLOCKS_PER_SM = 4  # blocks in flight per SM that the split aims for
 MIN_SPAN = 256  # fewest points a range of the split scans
@@ -73,8 +73,8 @@ def pairwise_topk_cuda(
 ):
     """Launch the kernel: (d (Q, k) f32, idx (Q, k) i32, counts (Q,) i32).
 
-    ``thr`` is the kernel-space threshold (squared radius for l2, raw for
-    l1/linf).  ``row_mask`` (Q,) uint8 skips rows where it is 0 and leaves
+    ``thr`` is the kernel-space threshold (squared radius for l2 and
+    l2diff, raw for l1/linf).  ``row_mask`` (Q,) uint8 skips rows where it is 0 and leaves
     their slots of ``out`` untouched.  Every tensor must be contiguous and
     on one CUDA device; anything else raises.
     """

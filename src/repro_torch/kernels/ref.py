@@ -9,6 +9,8 @@ multiply-add (the L2 forms) and always for L1 / L∞:
   ``sum(diff * diff)`` to, hence bitwise equal to ``repro``'s brute engine
   on the CPU;
 * L2, d > 8: ``max((qn + pn) - 2 q.p, 0)`` with every term an FMA chain;
+* L2 diff (``"l2diff"``): the d <= 8 L2 chain at any d — the placed
+  shard fabric's squared-L2 form (the reference's ``sum(diff * diff)``);
 * L1: sequential ``|q_a - p_a|`` sum; L∞: running max.
 
 Ties go to the lowest index (a stable sort, never ``torch.topk``), slots
@@ -42,8 +44,8 @@ def sq_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_dists(q: torch.Tensor, p: torch.Tensor, metric: str):
-    """(m, N) distances in the kernel's forms: squared for ``"l2"``, raw
-    for ``"l1"`` / ``"linf"``."""
+    """(m, N) distances in the kernel's forms: squared for ``"l2"`` and
+    ``"l2diff"``, raw for ``"l1"`` / ``"linf"``."""
     d = q.shape[1]
     if metric == "l2" and d > LOW_D:
         cross = q[:, None, 0] * p[None, :, 0]
@@ -52,11 +54,12 @@ def pairwise_dists(q: torch.Tensor, p: torch.Tensor, metric: str):
         return torch.clamp_min(
             (sq_norm(q)[:, None] + sq_norm(p)[None, :]) - 2.0 * cross, 0.0
         )
+    sq = metric in ("l2", "l2diff")
     diff = q[:, None, 0] - p[None, :, 0]
-    acc = diff * diff if metric == "l2" else diff.abs()
+    acc = diff * diff if sq else diff.abs()
     for a in range(1, d):
         diff = q[:, None, a] - p[None, :, a]
-        if metric == "l2":
+        if sq:
             acc = torch.addcmul(acc, diff, diff)
         elif metric == "l1":
             acc = acc + diff.abs()

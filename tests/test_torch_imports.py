@@ -41,6 +41,20 @@ assert dist.query(pts[:8], KnnSpec(3)).idxs.shape == (8, 3)
 assert distributed_trueknn_grid(pts, 3, mesh)[1].shape == (400, 3)
 sh = build_index(pts, backend="sharded", n_shards=4, device="cpu")
 assert sh.query(pts[:8], KnnSpec(3)).timings["plan"].startswith("sharded")
+import repro_torch.api.mutable
+import repro_torch.api.backends.mutable
+from repro_torch import make_mutable, map_to_stable
+from repro_torch.core.distributed import PlacedFabric
+
+placed = build_index(pts, backend="sharded", n_shards=4, device="cpu",
+                     placement="devices", mesh=DeviceMesh(["cpu"] * 2))
+assert "/placed=" in placed.query(pts[:8], KnnSpec(3)).timings["plan"]
+assert placed.rebalance() is False  # 4 shards fill both positions
+mut = make_mutable(placed, delta_rows=8, auto_compact="off")
+mut.insert(pts[:20] + 0.01)
+mut.delete([0, 401])
+assert mut.query(pts[:8], KnnSpec(3)).timings["plan"] == "mutable/sources=2"
+assert mut.compact() and mut.stats()["placement"]["mode"] == "devices"
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")

@@ -25,7 +25,11 @@ from repro_torch.kernels.pairwise_topk import (
     choose_splits,
     pairwise_topk_cuda,
 )
-from repro_torch.kernels.ref import merge_partial_topk, pairwise_topk_ref
+from repro_torch.kernels.ref import (
+    merge_partial_topk,
+    pairwise_dists,
+    pairwise_topk_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -132,6 +136,32 @@ def test_plain_brute_cosine_and_highd_close():
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("d", [3, 9, 12, 16])
+def test_plain_l2diff_bitwise_equals_jax_diff_sum(d):
+    """``l2diff`` (the placed fabric's squared-L2 form) is the reference's
+    jitted ``sum(diff * diff, -1)`` bitwise at every d that XLA reduces in
+    axis order, and its top-k the reference's ``lax.top_k`` order."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.distributed import _slot_form_dists
+
+    rng = np.random.default_rng(d)
+    p = rng.normal(size=(512, d)).astype(np.float32)
+    p[300:304] = p[7]  # exact ties: the lowest row first
+    q = rng.normal(size=(64, d)).astype(np.float32)
+    q[5] = p[7]
+    want = np.asarray(jax.jit(lambda b, x: _slot_form_dists("sq_l2", b, x))(
+        jnp.asarray(p), jnp.asarray(q)))
+    got = pairwise_dists(torch.from_numpy(q), torch.from_numpy(p), "l2diff")
+    assert np.array_equal(got.numpy(), want)
+    neg, idx = jax.lax.top_k(-jnp.asarray(want), 9)
+    d9, i9, _ = pairwise_topk_ref(torch.from_numpy(q), torch.from_numpy(p),
+                                  9, metric="l2diff")
+    assert np.array_equal(d9.numpy(), -np.asarray(neg))
+    assert np.array_equal(i9.numpy(), np.asarray(idx))
+
+
 def test_row_mask_writes_only_masked_rows():
     """The masked form the fused loop's brute tail uses: unmasked rows of
     ``out`` stay as they were, masked rows equal a full run."""
@@ -179,6 +209,11 @@ CARD_CASES = [
     (3, "l1", 300, 1.0, False),
     (3, "linf", 8, 0.3, True),
     (3, "cosine", 64, 0.02, False),
+    # generic forms on the warp path (k <= 32) whose tiles hold a row count
+    # that is not a multiple of 32, several tiles a range
+    (5, "l1", 8, 1.0, False),
+    (6, "linf", 32, 0.3, True),
+    (16, "l2", 8, 6.0, True),
 ]
 
 
@@ -212,6 +247,36 @@ def test_cuda_kernel_matches_plain(d, metric, k, radius, selfids):
         assert torch.equal(got[1], want[1])
     else:
         torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+
+
+@needs_card
+@pytest.mark.parametrize("d,k", [(3, 9), (12, 9), (12, 40), (20, 5)])
+def test_cuda_l2diff_matches_plain(d, k):
+    """The diff-form L2 selector on the card: bitwise the plain version at
+    every d (the warp path for k <= 32, the thread path above), masked
+    rows untouched."""
+    rng = np.random.default_rng(d * k)
+    dev = torch.device("cuda")
+    p = torch.from_numpy(rng.normal(size=(3000, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32)).to(dev)
+    qid = torch.full((500,), -1, dtype=torch.int32, device=dev)
+    mask = (torch.arange(500, device=dev) % 4 != 1).to(torch.uint8)
+    outs = []
+    for fn in (topk_engine, None):
+        out = (torch.full((500, k), -1.0, device=dev),
+               torch.full((500, k), -1, dtype=torch.int32, device=dev),
+               torch.full((500,), -1, dtype=torch.int32, device=dev))
+        if fn is None:
+            pairwise_topk_ref(q, p, k, radius2=float(d), query_ids=qid,
+                              metric="l2diff", row_mask=mask, out=out)
+        else:
+            fn(q, qid, p, float(d), k=k, metric="l2diff", row_mask=mask,
+               out=out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert (outs[0][2][mask == 0] == -1).all()
 
 
 # -- the split-N algorithm: partial lists over point ranges, then a merge ---

@@ -284,9 +284,13 @@ def test_children_live_on_the_index_device():
 
 
 def test_placement_devices_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="PlacedFabric"):
-        build_index(PTS, backend="sharded", device="cpu",
-                    placement="devices")
+    """``placement="devices"`` is ported now (``test_torch_placement.py``
+    holds it against the reference on 1-8 positions): on the one-device
+    in-process reference it answers and reports as the reference does.
+    Unknown placements and sharded children still raise."""
+    port, ref = _pair(placement="devices")
+    _same(port.query(QS, KnnSpec(K)), ref.query(QS, jax_api.KnnSpec(K)))
+    assert port.stats()["placement"] == ref.stats()["placement"]
     with pytest.raises(ValueError, match="placement"):
         build_index(PTS, backend="sharded", device="cpu", placement="mesh")
     with pytest.raises(ValueError, match="sharded children"):
