@@ -7,8 +7,9 @@ Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 ``torch.utils.cpp_extension.load`` call), holds each against its plain
 PyTorch version on the card, then drives the port's entry points (the
 trueknn, brute, fixed_radius, distributed, sharded and mutable backends,
-the planner's generic routes, all-pairs self-queries and the graph
-workloads) at full width through the user API and checks what comes out:
+the planner's generic routes, all-pairs self-queries, the graph
+workloads, the server, the kNN-LM datastore and the launcher) at full
+width through the user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -103,10 +104,31 @@ workloads) at full width through the user API and checks what comes out:
    distances bitwise, indices up to the order of tied neighbors, which
    follows each grid); after ``compact()`` bitwise, ties included; one
    background compaction, joined, its answers during and after equal;
+17. ``NeighborServer`` in worker-thread mode over three tenants of the
+   earlier phases (phase 4's warm trueknn index as ``"lidar"``, phase 15's
+   placed index, phase 16's compacted mutable index): a Poisson open loop
+   of 4096 single-row ``KnnSpec(8)`` requests on ``"lidar"`` at 20,000
+   requests/s; multi-row ``KnnSpec(8)``, ``HybridSpec(8, r)`` and
+   ``RangeSpec(r)`` requests on every tenant; an insert and a delete on
+   ``"mutable"``, each followed by a read that must see it; a
+   ``submit_graph(8)`` ticket on ``"lidar"``.  Every ticket bitwise equal
+   to a direct ``index.query`` of its rows (found too), the graph to
+   phase 11's; the server's counters reconcile and its batches coalesce;
+   per bucket: requests/s, p50/p99, batch histogram, launches and host
+   reads;
+18. ``max_knn_distance`` and ``percentile_knn_distance`` on kitti 2^20,
+   k = 8, equal to phase 4's batch 2 (max; 99th percentile of the 8th
+   column); a kNN-LM datastore of 2^20 synthetic hidden states of width
+   1024, ``knn_logprobs`` on 4096 rows, vocab 32,768: its retrieval
+   bitwise equal to a direct query, rows summing to 1 within 1e-5, within
+   1e-6 of the reference's host formula; then
+   ``repro_torch.launch.serve.main`` in process: ``--mode knn`` on kitti
+   2^20 (open loop), the placed sharded index on a 4-position mesh,
+   ``--mode graph`` and ``--mode dbscan`` on 2^16 points;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-16) and read
+are zeroed just before each entry point (phases 4, 5 and 9-18) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -1158,7 +1180,7 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
         f"wall_s={wall:.4f}, of which the range self-query {inner[0]:.4f} s "
         f"and the host union-find and labels {wall - inner[0]:.4f} s; "
         f"launches {counts}")
-    return rounds
+    return rounds, graph
 
 
 # -- phases 12-14: the mesh-sharded engines and the sharded backend --------
@@ -1610,7 +1632,7 @@ def phase_placed(dev, kitti_np, tk_index, knn14, range5, radius, tally):
     d12_row, err3 = hold_slot(dev, "l2diff d=12", wide[w_rows] + 0.01, wide,
                               torch.ones(ROWS, dtype=torch.uint8,
                                          device=dev), 9, "l2diff", 20.0)
-    return secs, [slot_row, esc_row, d12_row], max(err1, err2, err3)
+    return secs, [slot_row, esc_row, d12_row], max(err1, err2, err3), index
 
 
 def phase_mutable(dev, kitti_np, range5, radius, tally):
@@ -1726,7 +1748,393 @@ def phase_mutable(dev, kitti_np, range5, radius, tally):
     log(f"  background compaction of 4096 inserted rows: answers before the "
         f"swap (base + 2 deltas) and after (one base) equal: distances "
         f"bitwise, {moved} rows list tied neighbors in another order")
-    return secs
+    return secs, mut
+
+
+# -- phases 17-18: the serving layer, the applications and the launcher -----
+
+
+SERVE_BATCH = 1024  # phase 17's max_batch: rows coalesced into one batch
+SERVE_RATE = 20000.0  # phase 17 (a): offered single-row requests per second
+LM_N = 1 << 20  # phase 18: kNN-LM datastore rows
+LM_D = 1024  # Khandelwal et al.'s key width
+LM_VOCAB = 32768
+LAUNCH_SMALL_N = 1 << 16  # phase 18: the launcher's graph and DBSCAN runs
+
+
+class HostReads:
+    """Counts device-to-host reads while active: ``.cpu()``, ``.item()``,
+    ``.tolist()`` and truth / int / float conversions of card tensors, and
+    ``torch.cuda.synchronize`` calls, from any thread."""
+
+    NAMES = ("cpu", "item", "tolist", "__bool__", "__int__", "__float__")
+
+    def __enter__(self):
+        import torch
+
+        self.n = 0
+        self._saved = {name: torch.Tensor.__dict__.get(name)
+                       for name in self.NAMES}
+        for name in self.NAMES:
+            orig = getattr(torch.Tensor, name)
+
+            def wrap(t, *a, _orig=orig, **kw):
+                if t.is_cuda:
+                    self.n += 1
+                return _orig(t, *a, **kw)
+
+            setattr(torch.Tensor, name, wrap)
+        self._sync = torch.cuda.synchronize
+
+        def sync(*a, **kw):
+            self.n += 1
+            return self._sync(*a, **kw)
+
+        torch.cuda.synchronize = sync
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for name, orig in self._saved.items():
+            if orig is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, orig)
+        torch.cuda.synchronize = self._sync
+        return False
+
+
+def same_rows(tag, results, direct):
+    """Tickets of consecutive row blocks against one direct query of all
+    the rows: kNN distances, indices and found (where the direct answer
+    has it), or the range CSR's counts, indices and distances, bitwise."""
+    if hasattr(direct, "offsets"):
+        counts = np.concatenate([r.counts for r in results])
+        check(np.array_equal(counts, direct.counts), f"{tag}: range counts")
+        for key in ("idxs", "dists"):
+            got = np.concatenate([getattr(r, key) for r in results])
+            check(np.array_equal(got, getattr(direct, key)),
+                  f"{tag}: range {key}")
+        return
+    for key in ("dists", "idxs"):
+        got = np.vstack([getattr(r, key) for r in results])
+        check(np.array_equal(got, getattr(direct, key)), f"{tag}: {key}")
+    if direct.found is not None:
+        got = np.concatenate([r.found for r in results])
+        check(np.array_equal(got, direct.found), f"{tag}: found")
+
+
+def bucket_line(name, b, extra=""):
+    return (f"    bucket {name}: {b['requests']} requests, {b['rows']} rows "
+            f"in {b['batches']} batches, hist {b['batch_size_hist']}, p50 "
+            f"{b['latency_p50_ms']} ms, p99 {b['latency_p99_ms']} ms{extra}")
+
+
+def phase_server(dev, kitti_np, lidar, placed, mut, range5, radius, graph11,
+                 tally):
+    """Phase 17: ``NeighborServer`` in worker-thread mode on the card over
+    three tenants reused from earlier phases (phase 4's warm trueknn index
+    ``lidar``, phase 15's placed 8-shard index, phase 16's compacted
+    mutable index): (a) a Poisson open loop of single-row ``KnnSpec(8)``
+    requests on ``lidar``; (b) multi-row kNN, hybrid and range requests
+    on every tenant; (c) inserts and deletes on ``mutable`` between reads;
+    (d) a kNN-graph ticket on ``lidar``.  Every ticket is held against a
+    direct ``index.query`` of the same rows (and the graph against phase
+    11's) bitwise, and the server's counters must reconcile."""
+    from repro_torch import (HybridSpec, KnnSpec, NeighborServer, RangeSpec,
+                             make_dataset)
+    from repro_torch.api.server import poisson_open_loop
+
+    q5 = kitti_np[range5[0]]
+    out = {}
+
+    def fabric_syncs():  # host syncs of the placed tenant's fabric
+        fab = placed._placed
+        return 0 if fab is None else fab.syncs
+
+    def drive(tag, fn, need):
+        s0 = fabric_syncs()
+        reads = HostReads()
+
+        def run():
+            with reads:
+                return fn()
+
+        res, wall, counts = counted(f"server {tag}", run, tally, need=need)
+        out[tag] = {"wall_s": wall, "launches": counts,
+                    "host_reads": reads.n,
+                    "fabric_syncs": fabric_syncs() - s0}
+        return res, wall, counts, reads.n
+
+    # (a) the open loop on its own server, so its bucket is its own
+    solo = NeighborServer(indexes={"lidar": lidar}, max_batch=SERVE_BATCH,
+                          cache_size=0)
+    (results, wall_a, lat), wall, counts, reads = drive(
+        "open loop", lambda: poisson_open_loop(
+            solo, q5, KnnSpec(8), SERVE_RATE, np.random.default_rng(17),
+            index="lidar", timeout=600.0),
+        ("grid_round",))
+    check(len(results) == ROWS, f"open loop served {len(results)} of {ROWS}")
+    direct = lidar.query(q5, KnnSpec(8))
+    same_rows("open loop vs direct", results, direct)
+    st = solo.stats()
+    b = st["buckets"]["lidar/knn/k=8/l2"]
+    check(st["submitted"] == st["served"] == ROWS and st["rejected"] == 0,
+          f"open loop stats {st['submitted']} {st['served']}")
+    check(b["requests"] == ROWS and b["rows"] == ROWS, "open loop bucket")
+    check(max(b["batch_size_hist"]) > 1, "open loop never coalesced")
+    out["open loop"].update(requests_per_s=ROWS / wall_a,
+                            p50_ms=b["latency_p50_ms"],
+                            p99_ms=b["latency_p99_ms"],
+                            hist=b["batch_size_hist"])
+    log(f"  (a) {ROWS} single-row KnnSpec(8) requests on 'lidar' offered at "
+        f"{SERVE_RATE:.0f}/s: served {ROWS} in {wall_a:.4f}s "
+        f"({ROWS / wall_a:.1f} requests/s), each ticket bitwise equal to a "
+        f"direct query of its row (distances, indices); launches {counts}, "
+        f"host reads {reads}")
+    log(bucket_line("lidar/knn/k=8/l2", b))
+
+    # (b)-(d) the three tenants on one server
+    tenants = {"lidar": lidar, "placed": placed, "mutable": mut}
+    server = NeighborServer(indexes=tenants, max_batch=SERVE_BATCH,
+                            cache_size=0)
+    specs = (("knn", KnnSpec(8)), ("hybrid", HybridSpec(8, radius)),
+             ("range", RangeSpec(radius)))
+    rows_b = q5[:SERVE_BATCH]
+    n_req = 8
+    blocks = np.split(rows_b, n_req)
+    server.start()
+    try:
+        for name, index in tenants.items():
+            for kind, spec in specs:
+                need = (("pairwise_topk",) if name == "placed"
+                        else ("grid_round",))
+                tickets, wall, counts, reads = drive(
+                    f"{name} {kind}",
+                    lambda: [t.result(timeout=600) for t in [
+                        server.submit(blk, spec, index=name)
+                        for blk in blocks]], need)
+                server.stop()  # idle: the direct query owns the index
+                same_rows(f"{name} {kind}", tickets,
+                          index.query(rows_b, spec))
+                server.start()
+                out[f"{name} {kind}"]["requests_per_s"] = n_req / wall
+                log(f"  (b) '{name}' {kind}: {n_req} requests of "
+                    f"{len(blocks[0])} rows in {wall:.4f}s "
+                    f"({n_req / wall:.2f} requests/s), bitwise equal to a "
+                    f"direct query ({'the CSR' if kind == 'range' else 'found too'}"
+                    f"); launches {counts}, host "
+                    f"reads {reads}, fabric syncs "
+                    f"{out[f'{name} {kind}']['fabric_syncs']}")
+
+        # (c) writes between reads on the mutable tenant
+        extra = make_dataset("kitti", 2048, seed=2)
+        new_q = extra[:256]
+
+        def write_then_read():
+            ins = server.submit_insert(extra, index="mutable")
+            reads = server.submit(new_q, KnnSpec(8), index="mutable")
+            return ins.result(timeout=600), reads.result(timeout=600)
+
+        (minted, seen), wall, counts, reads = drive(
+            "insert then read", write_then_read, ("grid_round",))
+        check(len(minted) == 2048, "minted ids")
+        check(bool((seen.idxs == minted[:256, None]).any(1).all()),
+              "a read after the insert does not see the inserted rows")
+        server.stop()
+        same_rows("read after insert", [seen], mut.query(new_q, KnnSpec(8)))
+        live = mut.snapshot()[1]  # phase 16 deleted some base ids
+        dead = np.concatenate([minted[:64], live[live < N_MAIN][:64]])
+        server.start()
+
+        def delete_then_read():
+            dl = server.submit_delete(dead, index="mutable")
+            reads = server.submit(new_q, KnnSpec(8), index="mutable")
+            return dl.result(timeout=600), reads.result(timeout=600)
+
+        (n_dead, seen2), wall2, counts2, reads2 = drive(
+            "delete then read", delete_then_read, ("grid_round",))
+        check(n_dead == len(dead), "deleted rows")
+        check(not np.isin(seen2.idxs, dead).any(),
+              "a read after the delete sees deleted rows")
+        server.stop()
+        same_rows("read after delete", [seen2],
+                  mut.query(new_q, KnnSpec(8)))
+        server.start()
+        log(f"  (c) 'mutable': insert 2048 rows, then KnnSpec(8) on 256 of "
+            f"them: every row finds its own new id, equal to a direct query "
+            f"bitwise ({wall:.4f}s, launches {counts}, host reads {reads}); "
+            f"delete 128 ids, then the same read: no deleted id, equal to a "
+            f"direct query ({wall2:.4f}s, launches {counts2}, host reads "
+            f"{reads2})")
+
+        # (d) a kNN-graph ticket on the warm tenant
+        graph, wall, counts, reads = drive(
+            "graph", lambda: server.submit_graph(8, index="lidar").result(
+                timeout=600), ("grid_round",))
+        for key in ("indptr", "indices", "dists"):
+            check(np.array_equal(getattr(graph, key), getattr(graph11, key)),
+                  f"graph ticket {key} vs phase 11")
+        log(f"  (d) submit_graph(8) on 'lidar': {graph.n} nodes, "
+            f"{graph.n_edges} edges, bitwise equal to phase 11's "
+            f"build_knn_graph; {wall:.4f}s, launches {counts}, host reads "
+            f"{reads}")
+    finally:
+        server.stop()
+    st = server.stats()
+    n_req_all = 3 * 3 * n_req + 4 + 1  # reads, two writes and two reads, graph
+    check(st["submitted"] == st["served"] == n_req_all, "server requests")
+    check(st["rejected"] == 0 and st["pending_rows"] == 0,
+          "server rejected or pending")
+    rows_all = sum(b["rows"] for b in st["buckets"].values())
+    check(rows_all == 9 * SERVE_BATCH + 2048 + 256 + 128 + 256 + 1,
+          f"server rows {rows_all}")
+    for name, b in st["buckets"].items():
+        if "/write/" not in name and "/graph/" not in name:
+            check(max(b["batch_size_hist"]) > len(blocks[0]),
+                  f"{name} never coalesced")
+        log(bucket_line(name, b))
+    check(st["placement"]["tenants"]["placed"]["fused_dispatches"] > 0,
+          "placement roll-up")
+    log(f"  stats reconcile: {st['submitted']} requests submitted and "
+        f"served, 0 rejected, {rows_all} rows; writes {st['writes']}; "
+        f"workloads {st['workloads']}; placement fused dispatches "
+        f"{st['placement']['fused_dispatches']}")
+    return out
+
+
+def phase_apps(dev, kitti_np, b2, tally):
+    """Phase 18: the oracle radii on kitti 2^20 against phase 4's batch 2,
+    a kNN-LM datastore of 2^20 synthetic hidden states of width 1024 with
+    ``knn_logprobs`` on 4096 rows, and the serving launcher's modes in
+    process."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import KnnSpec
+    from repro_torch.core import max_knn_distance, percentile_knn_distance
+    from repro_torch.core.knnlm import build_datastore, knn_logprobs
+    from repro_torch.launch import serve
+
+    out = {}
+    kitti = torch.as_tensor(kitti_np, device=dev)
+    kth = b2.dists[:, 7]
+    for name, fn, want in (
+            ("max_knn_distance", lambda: max_knn_distance(kitti, 8),
+             float(np.max(kth))),
+            ("percentile_knn_distance",
+             lambda: percentile_knn_distance(kitti, 8, 99.0),
+             float(np.percentile(kth, 99.0)))):
+        got, wall, counts = counted(name, fn, tally, need=("pairwise_topk",))
+        check(got == want, f"{name} {got} != phase 4's {want}")
+        out[name] = wall
+        log(f"  {name}(kitti 2^20, 8) = {got!r}, equal to phase 4's batch 2 "
+            f"8th column; wall_s={wall:.4f} launches {counts}")
+    del kitti
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    hid = rng.standard_normal((LM_N, LM_D), dtype=np.float32)
+    tgt = rng.integers(0, LM_VOCAB, LM_N)
+    q_hid = rng.standard_normal((ROWS, LM_D), dtype=np.float32)
+    gen_s = time.perf_counter() - t0
+    store, build_s, counts = counted(
+        "kNN-LM build", lambda: build_datastore(hid, tgt, device=dev), tally,
+        need=())
+    del hid
+    check(store.keys3d.shape == (LM_N, 3) and np.isfinite(store.keys3d).all(),
+          "datastore keys")
+    seen = []
+    query = store.index.query
+
+    def keep(*a, **kw):
+        res = query(*a, **kw)
+        seen.append(res)
+        return res
+
+    store.index.query = keep
+    try:
+        probs, wall, counts = counted(
+            "knn_logprobs",
+            lambda: knn_logprobs(store, q_hid, LM_VOCAB, k=8), tally)
+    finally:
+        del store.index.query
+    check(probs.shape == (ROWS, LM_VOCAB) and np.isfinite(probs).all(),
+          "kNN-LM distribution shape")
+    sums = probs.sum(1, dtype=np.float64)
+    check(np.abs(sums - 1.0).max() <= 1e-5, "kNN-LM rows sum to 1")
+    retrieval = seen[0]
+    direct = store.index.query(store.projector(q_hid), KnnSpec(8))
+    check(np.array_equal(retrieval.dists, direct.dists)
+          and np.array_equal(retrieval.idxs, direct.idxs),
+          "kNN-LM retrieval vs a direct query")
+    # the reference's host formula on the same retrieval
+    w = np.exp(-retrieval.dists / np.float32(1.0))
+    w = np.where(np.isfinite(retrieval.dists), w, 0.0)
+    w = w / np.clip(w.sum(1, keepdims=True), 1e-12, None)
+    want = np.zeros((ROWS, LM_VOCAB), np.float32)
+    t_ids = store.targets[np.clip(retrieval.idxs, 0, LM_N - 1)]
+    for i in range(ROWS):
+        np.add.at(want[i], t_ids[i], w[i])
+    err = float(np.abs(probs - want).max())
+    check(err <= 1e-6, f"kNN-LM distribution vs the host formula {err}")
+    out.update(lm_generate_s=gen_s, lm_build_s=build_s, knn_logprobs_s=wall)
+    log(f"  kNN-LM: {LM_N} hidden states of width {LM_D} drawn in "
+        f"{gen_s:.2f}s, PCA to 3-D and a trueknn index on the card in "
+        f"{build_s:.2f}s; knn_logprobs on {ROWS} rows, vocab {LM_VOCAB}: "
+        f"{wall:.4f}s, launches {counts}; retrieval bitwise equal to a "
+        f"direct query, rows sum to 1 within "
+        f"{np.abs(sums - 1.0).max():.2e}, max |err| {err:.2e} against the "
+        f"reference's host formula; start "
+        f"{retrieval.timings.get('start_radius_source')}, rounds "
+        f"{retrieval.n_rounds}")
+    del store, probs, want
+
+    runs = (
+        ("knn open loop", ["--mode", "knn", "--n", str(N_MAIN), "--arrival",
+                           "open", "--rate", f"{SERVE_RATE:.0f}",
+                           "--batches", "1", "--batch-size",
+                           str(2 * SERVE_BATCH)], ("grid_round",)),
+        ("knn placed", ["--mode", "knn", "--n", str(N_MAIN), "--backend",
+                        "sharded", "--placement", "devices", "--devices",
+                        "4", "--arrival", "closed", "--batches", "2",
+                        "--batch-size", str(SERVE_BATCH)],
+         ("pairwise_topk",)),
+        ("graph", ["--mode", "graph", "--n", str(LAUNCH_SMALL_N), "--k",
+                   "8"], ("grid_round",)),
+        ("dbscan", ["--mode", "dbscan", "--n", str(LAUNCH_SMALL_N),
+                    "--min-pts", "8"], ("grid_round",)),
+    )
+    for tag, argv, need in runs:
+        argv = argv + ["--device", str(dev)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, wall, counts = counted(f"launcher {tag}",
+                                      lambda: serve.main(argv), tally,
+                                      need=need)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"    | {line}")
+        log(f"  launcher {' '.join(argv)}: wall_s={wall:.4f} launches "
+            f"{counts}")
+        out[f"launcher {tag}"] = wall
+        if tag == "knn open loop":
+            n = 2 * SERVE_BATCH
+            check(f"open loop: {n}/{n} requests served" in text,
+                  "launcher open loop")
+        elif tag == "knn placed":
+            check("mesh: 4 positions" in text and "/placed=" in text
+                  and "placement 'default': 8 slots on 4 devices" in text,
+                  "launcher placed")
+        elif tag == "graph":
+            check(f"{LAUNCH_SMALL_N} nodes" in text, "launcher graph")
+        else:
+            check("clusters" in text and f"noise of {LAUNCH_SMALL_N}" in text,
+                  "launcher dbscan")
+    return out
 
 
 def main() -> int:
@@ -1785,7 +2193,8 @@ def main() -> int:
     log("phase 10: generic routes on 4096 rows")
     route_s = phase_routes(dev, kitti_np, index, fr_index, rng, tally)
     log("phase 11: all-pairs self-queries, kNN graph and DBSCAN")
-    range_rounds = phase_all_pairs(dev, index, fr_index, b2, radius, tally)
+    range_rounds, graph11 = phase_all_pairs(dev, index, fr_index, b2, radius,
+                                            tally)
     log(f"  phases 9-11 launches {tally}; route seconds "
         f"{json.dumps(route_s)}")
     del fr_index
@@ -1808,16 +2217,29 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 15: sharded (placement='devices') over kitti 2^20, 8 trueknn "
         "shards on one card")
-    placed_s, placed_rows, placed_err = phase_placed(
+    placed_s, placed_rows, placed_err, placed = phase_placed(
         dev, kitti_np, index, knn14, range5, radius, tally)
     log(f"  phase 15 took {time.perf_counter() - t0:.1f}s; per batch "
         f"{json.dumps(placed_s)}")
     t0 = time.perf_counter()
     log("phase 16: mutable over a trueknn base of kitti 2^20")
-    mutable_s = phase_mutable(dev, kitti_np, range5, radius, tally)
+    mutable_s, mut = phase_mutable(dev, kitti_np, range5, radius, tally)
     log(f"  phase 16 took {time.perf_counter() - t0:.1f}s; seconds "
         f"{json.dumps(mutable_s)}")
-    log(f"  phases 9-16 launches {tally}")
+    t0 = time.perf_counter()
+    log("phase 17: NeighborServer on the card, worker thread, tenants "
+        "'lidar' (phase 4), 'placed' (phase 15), 'mutable' (phase 16)")
+    server_s = phase_server(dev, kitti_np, index, placed, mut, range5,
+                            radius, graph11, tally)
+    del placed, mut, graph11
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f}s; per part "
+        f"{json.dumps(server_s)}")
+    t0 = time.perf_counter()
+    log("phase 18: oracle radii, kNN-LM datastore and the serving launcher")
+    apps_s = phase_apps(dev, kitti_np, b2, tally)
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f}s; seconds "
+        f"{json.dumps(apps_s)}")
+    log(f"  phases 9-18 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1838,7 +2260,8 @@ def main() -> int:
             "bound_by": pw_b[1],
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
-                        "phase 11", "phase 12", "phase 15"],
+                        "phase 11", "phase 12", "phase 15", "phase 17",
+                        "phase 18"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -1861,7 +2284,7 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
                         "phase 10", "phase 11", "phase 13", "phase 14",
-                        "phase 16"],
+                        "phase 16", "phase 17", "phase 18"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

@@ -9,9 +9,11 @@ PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_scope"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -32,3 +34,16 @@ def resolve_device(device="cuda") -> torch.device:
         )
     return torch.device("cuda", torch.cuda.current_device()
                         if dev.index is None else dev.index)
+
+
+def device_scope(device, stream=None):
+    """A context in which this thread's torch ops run on ``device``: for a
+    card, it is the thread's current CUDA device (a thread starts on card
+    0), and ``stream``, when given, its current stream.  A no-op for the
+    CPU or None."""
+    stack = contextlib.ExitStack()
+    if device is not None and torch.device(device).type == "cuda":
+        stack.enter_context(torch.cuda.device(device))
+        if stream is not None:
+            stack.enter_context(torch.cuda.stream(stream))
+    return stack

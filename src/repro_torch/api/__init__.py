@@ -16,6 +16,8 @@ pruning), plus the ``device`` build knob.  For mutation,
 ``backend="mutable"`` (or ``make_mutable(index)``, which adopts a built
 index with no rebuild) composes an immutable base with brute delta
 shards and tombstones — see ``repro_torch.api.mutable``.
+``NeighborServer`` fronts resident indexes with a microbatching request
+queue (``repro_torch.api.server``).
 """
 
 from ..core.distributed import DeviceMesh
@@ -34,6 +36,13 @@ from .index import NeighborIndex, build_index
 from .mutable import CompactionPolicy, make_mutable, map_to_stable
 from .plan import PlanContext, QueryPlan
 from .registry import available_backends, get_backend, register_backend
+from .server import (
+    AdmissionError,
+    NeighborServer,
+    Ticket,
+    dropped_counts,
+    warm_default_radius,
+)
 
 __all__ = [
     "KNNResult",
@@ -61,4 +70,9 @@ __all__ = [
     "get_backend",
     "register_backend",
     "backends",
+    "NeighborServer",
+    "Ticket",
+    "AdmissionError",
+    "warm_default_radius",
+    "dropped_counts",
 ]

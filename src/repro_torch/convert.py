@@ -1,10 +1,11 @@
 """Index state carried in from numpy arrays.
 
 The port has no weights; its state is the index: the hash grids and
-TrueKNN's radius lattice and warm-start values.  These functions build
-that state from plain numpy arrays and floats — whatever produced them
+TrueKNN's radius lattice and warm-start values, and a kNN-LM datastore's
+projected keys, targets and PCA projection.  These functions build that
+state from plain numpy arrays and floats — whatever produced them
 (another process, a saved index, the JAX reference package) — so two
-implementations can be fed the same grid and the same warm state.
+implementations can be fed the same grid, warm state or datastore.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from ._device import resolve_device
 from .core.grid import Grid
 
-__all__ = ["grid_from_numpy", "trueknn_state_from_numpy", "TrueKNNState"]
+__all__ = ["grid_from_numpy", "trueknn_state_from_numpy", "TrueKNNState",
+           "datastore_from_reference"]
 
 
 def grid_from_numpy(buckets, point_cells, origin, inv_cell, res, table_size,
@@ -82,4 +84,24 @@ def trueknn_state_from_numpy(anchor, j_cap, warm_r, sampled_r) -> TrueKNNState:
         j_cap=None if j_cap is None else int(j_cap),
         warm_r=f(warm_r),
         sampled_r=f(sampled_r),
+    )
+
+
+def datastore_from_reference(keys3d, targets, mean, components, *,
+                             backend: str = "trueknn", device="cuda", **cfg):
+    """A port ``knnlm.Datastore`` from a datastore's numpy state: the
+    projected keys (N, 3), the targets (N,), and the PCA projection's
+    ``mean`` (D,) and ``components`` (D, 3).  The keys are taken as they
+    are (no refit), and the index over them is built on ``device`` with
+    ``backend`` and ``cfg``."""
+    from .api import build_index
+    from .core.knnlm import Datastore, PCAProjector
+
+    keys3d = np.ascontiguousarray(keys3d, np.float32)
+    return Datastore(
+        keys3d=keys3d,
+        targets=np.asarray(targets, np.int32),
+        projector=PCAProjector(mean=np.asarray(mean, np.float32),
+                               components=np.asarray(components, np.float32)),
+        index=build_index(keys3d, backend=backend, device=device, **cfg),
     )

@@ -393,8 +393,9 @@ class PlacedFabric:
     (the mesh's first device by default).  ``dispatches`` counts calls of
     :meth:`topk` and :meth:`fused_rounds`, the reference's one device
     program each; ``syncs`` counts the blocking device-to-host reads they
-    make (one per launched slot in ``topk``; one per round and one for the
-    result in ``fused_rounds``); kernel launches are counted apart
+    make (one per device with a launched slot in ``topk``, after every
+    slot has launched; one per round and one for the result in
+    ``fused_rounds``); kernel launches are counted apart
     (``kernels.build.launch_counts``).
     """
 
@@ -511,13 +512,26 @@ class PlacedFabric:
         cnt = np.zeros((self.n_slots, qp), np.int32)
         thr = float(np.float32(threshold))
         q_dev: dict = {}
+        launched: dict = {}  # device -> [(slot, (d, idx, cnt))]
         for j, blk in enumerate(self._placed_blocks(space)):
             if blk is None or not vm[j].any():
                 continue
             res = self._slot_call(j, blk, FORM_METRIC[form], q_dev, q,
                                   torch.from_numpy(vm[j]), k, thr)
-            d[j], idx[j], cnt[j] = (t.cpu().numpy() for t in res)
+            launched.setdefault(self.slot_device(j), []).append((j, res))
+        # every slot is launched before the first read; then one copy per
+        # device carries its slots' (d, idx, cnt) as one int32 buffer
+        for parts in launched.values():
+            buf = torch.cat([
+                torch.cat([dj.view(torch.int32).reshape(-1), ij.reshape(-1),
+                           cj]) for _, (dj, ij, cj) in parts]).cpu().numpy()
             self.syncs += 1
+            step = qp * k
+            for n, (j, _) in enumerate(parts):
+                row = buf[n * (2 * step + qp):(n + 1) * (2 * step + qp)]
+                d[j] = row[:step].view(np.float32).reshape(qp, k)
+                idx[j] = row[step:2 * step].reshape(qp, k)
+                cnt[j] = row[2 * step:]
         self.dispatches += 1
         return d, idx, cnt
 

@@ -89,7 +89,7 @@ def _check_stacked_bytes(reqs, table_size: int, cap: int, dev) -> None:
 
 
 def build_stacked_grids(pts_shards: np.ndarray, n_valid: np.ndarray,
-                        radius: float, *, device="cpu"):
+                        radius: float, *, device="cuda"):
     """Per-shard hash grids at a common (table_size, cap) shape, binned on
     ``device``.
 

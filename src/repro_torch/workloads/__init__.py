@@ -3,7 +3,8 @@
 Batch analytics whose hot loop IS neighbor search: kNN-graph
 construction (:func:`build_knn_graph`) and DBSCAN density clustering
 (:func:`dbscan`), both driven through the planner's ``AllPairsSpec``
-self-query route so every backend — brute, fixed_radius, trueknn —
+self-query route so every backend — brute, fixed_radius, trueknn, and
+sharded with its shards on the host or placed on mesh positions —
 serves them with identical, deterministic answers.  Host-side numpy over
 ``index.query(None, AllPairsSpec(...))``; the search runs on the index's
 device.

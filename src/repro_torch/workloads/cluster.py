@@ -23,7 +23,8 @@ min_pts)`` follows that split exactly:
 
 Labels are relabeled consecutively ``0..C-1`` ordered by each cluster's
 minimum member row, and are ``np.array_equal`` across the brute /
-fixed_radius / trueknn backends and equal to the JAX package's: each
+fixed_radius / trueknn / sharded (host or placed) backends and equal to
+the JAX package's: each
 returns the same exact neighborhoods, and every step after is a
 deterministic function of those sets.
 """

@@ -11,7 +11,8 @@ Determinism: every backend is exact with the (dist, id) lexicographic
 tie-break, so the per-row neighbor *sets* are the unique k-NN answer;
 this module re-sorts edges into one canonical order — by (row, dist,
 col) — so the CSR arrays are ``np.array_equal`` across brute /
-fixed_radius / trueknn whatever each engine's internal row order was.
+fixed_radius / trueknn / sharded (host or placed) whatever each engine's
+internal row order was.
 Distances are bitwise symmetric (IEEE ``(a-b)**2 == (b-a)**2`` per
 coordinate, same summation order), so symmetrization never invents a
 second float value for the same edge.

@@ -308,13 +308,14 @@ def test_stacked_grids_that_cannot_fit_raise(monkeypatch):
     from repro_torch.core import distributed_grid as dg
 
     shards, n_valid = dg.shard_points(make_dataset("porto", 1030, seed=2), 8)
-    _, table, cap = dg.build_stacked_grids(shards, n_valid, 0.05)
+    _, table, cap = dg.build_stacked_grids(shards, n_valid, 0.05,
+                                           device="cpu")
     need = 2 * 8 * table * cap * 4
     monkeypatch.setattr(dg, "_device_bytes", lambda dev: need - 1)
     with pytest.raises(MemoryError, match=r"shards ask for .*ROADMAP"):
-        dg.build_stacked_grids(shards, n_valid, 0.05)
+        dg.build_stacked_grids(shards, n_valid, 0.05, device="cpu")
     monkeypatch.setattr(dg, "_device_bytes", lambda dev: need)
-    dg.build_stacked_grids(shards, n_valid, 0.05)
+    dg.build_stacked_grids(shards, n_valid, 0.05, device="cpu")
 
 
 # -- on the card ------------------------------------------------------------

@@ -55,6 +55,28 @@ mut.insert(pts[:20] + 0.01)
 mut.delete([0, 401])
 assert mut.query(pts[:8], KnnSpec(3)).timings["plan"] == "mutable/sources=2"
 assert mut.compact() and mut.stats()["placement"]["mode"] == "devices"
+import repro_torch.api.server
+import repro_torch.core.knnlm
+import repro_torch.launch.serve
+import repro_torch.convert
+from repro_torch import NeighborServer, Ticket, AdmissionError
+from repro_torch.api import warm_default_radius, dropped_counts
+from repro_torch.core import (Grid, brute_knn_engine, build_grid,
+                              fixed_radius_round, max_knn_distance,
+                              merge_knn, merge_range,
+                              percentile_knn_distance, sample_start_radius,
+                              topk_merge_rows)
+from repro_torch.core.knnlm import build_datastore, knn_logprobs
+
+srv = NeighborServer(indexes={"a": build_index(pts, backend="brute",
+                                                device="cpu")})
+assert srv.submit(pts[:4], KnnSpec(3), index="a").result().dists.shape == (4, 3)
+assert max_knn_distance(pts, 3, device="cpu") > 0
+store = build_datastore(np.random.default_rng(0).normal(
+    size=(300, 8)).astype(np.float32), np.arange(300) % 7, device="cpu")
+assert knn_logprobs(store, np.zeros((2, 8), np.float32), 7).shape == (2, 7)
+import repro_torch.core as rcore
+assert rcore.build_index is build_index
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")

@@ -31,7 +31,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import DeviceMesh, KnnSpec, build_index, make_dataset
+from repro_torch import (DeviceMesh, HybridSpec, KnnSpec, build_index,
+                         make_dataset)
 from repro_torch.api import get_metric
 from torch_placement_cases import GROUPS, inputs, run_all
 
@@ -184,6 +185,46 @@ def test_placed_equals_host_placement():
     assert host.stats()["placement"] == {"mode": "host"}
 
 
+def test_topk_copies_once_per_device():
+    """A placed dispatch launches every visited slot, then copies each
+    device's results to the host once: on a 4-position CPU mesh (one
+    device) ``syncs`` grows by one per ``topk``, however many slots it
+    launched, and each slot's answer equals its own launch read alone."""
+    from repro_torch.core.distributed import FORM_METRIC, PlacedFabric
+
+    pts, qs = inputs(make_dataset)
+    blocks = np.array_split(pts, 6)
+    fab = PlacedFabric(blocks, mesh=DeviceMesh(["cpu"] * 4))
+    assert fab.n_slots == 8  # two empty slots launch nothing
+    vm = np.ones((fab.n_slots, len(qs)), bool)
+    vm[1, ::2] = False
+    for form in ("sq_l2", "l1", "linf"):
+        before = fab.syncs
+        d, idx, cnt = fab.topk("raw", form, qs, vm, 4, threshold=0.2)
+        assert fab.syncs == before + 1
+        q = torch.as_tensor(qs)
+        for j, blk in enumerate(fab._placed_blocks("raw")):
+            if blk is None:
+                assert np.isinf(d[j]).all() and (cnt[j] == 0).all()
+                assert (idx[j] == fab.block_rows).all()
+                continue
+            wd, wi, wc = (t.numpy() for t in fab._slot_call(
+                j, blk, FORM_METRIC[form], {}, q, torch.from_numpy(vm[j]),
+                4, float(np.float32(0.2))))
+            assert np.array_equal(d[j], wd) and np.array_equal(idx[j], wi)
+            assert np.array_equal(cnt[j], wc)
+    index = build_index(pts, backend="sharded", n_shards=5, device="cpu",
+                        placement="devices", mesh=DeviceMesh(["cpu"] * 4))
+    index.query(qs, KnnSpec(4))  # places the blocks
+    fab = index._placed
+    for metric in ("cosine", "l2"):
+        s0, d0 = fab.syncs, fab.dispatches
+        spec = KnnSpec(4) if metric == "cosine" else HybridSpec(4, 0.05)
+        index.query(qs, spec, metric=metric)
+        assert fab.dispatches > d0
+        assert fab.syncs - s0 == fab.dispatches - d0
+
+
 def test_mesh_checks():
     pts, _ = inputs(make_dataset)
     with pytest.raises(ValueError, match="1-D"):
@@ -242,4 +283,57 @@ def test_cuda_mutable_over_placed_equals_cpu():
     for a, b in zip(*out):
         for key in ("dists", "idxs", "offsets"):
             if hasattr(a, key):
+                assert np.array_equal(getattr(a, key), getattr(b, key)), key
+
+
+@needs_card
+def test_cuda_server_worker_thread_equals_cpu():
+    """``NeighborServer``'s worker thread with every tenant on the card (a
+    trueknn index, a placed sharded one on a 2-position mesh, a mutable one
+    taking an insert between reads) serves what the same drive serves on
+    the CPU, bitwise, and launches both kernels."""
+    from repro_torch import (HybridSpec, NeighborServer, RangeSpec,
+                             make_mutable)
+    from repro_torch.kernels import build
+
+    pts, qs = inputs(make_dataset)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        tenants = {
+            "lidar": build_index(pts, backend="trueknn", device=dev),
+            "placed": build_index(pts, backend="sharded", n_shards=5,
+                                  device=dev, placement="devices",
+                                  mesh=DeviceMesh([dev] * 2)),
+            "mutable": make_mutable(build_index(pts, backend="trueknn",
+                                                device=dev),
+                                    delta_rows=16, auto_compact="off"),
+        }
+        server = NeighborServer(indexes=tenants, max_batch=16)
+        build.reset_launches()
+        server.start()
+        try:
+            if dev == "cuda":
+                assert set(server._streams) == {torch.device("cuda", 0)}
+            tickets = [server.submit(q, KnnSpec(4), index="lidar")
+                       for q in qs]
+            for name in tenants:
+                for spec in (KnnSpec(4), HybridSpec(4, 0.05),
+                             RangeSpec(0.05)):
+                    tickets.append(server.submit(qs, spec, index=name))
+            tickets.append(server.submit_insert(qs[:5] + np.float32(0.001),
+                                                index="mutable"))
+            tickets.append(server.submit(qs, KnnSpec(4), index="mutable"))
+            tickets.append(server.submit_graph(4, index="lidar"))
+            outs.append([t.result(timeout=300) for t in tickets])
+        finally:
+            server.stop()
+        if dev == "cuda":
+            assert min(build.launch_counts().values()) > 0
+    for a, b in zip(*outs):
+        if isinstance(a, np.ndarray):  # minted ids
+            assert np.array_equal(a, b)
+            continue
+        for key in ("dists", "idxs", "found", "offsets", "indptr",
+                    "indices"):
+            if getattr(a, key, None) is not None:
                 assert np.array_equal(getattr(a, key), getattr(b, key)), key

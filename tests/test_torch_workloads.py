@@ -2,7 +2,8 @@
 package's: union-find properties, ``build_knn_graph`` in its three
 symmetrize modes and ``dbscan`` labels and core mask, ``np.array_equal`` to
 ``repro.workloads`` on the same inputs and backend, and identical across
-the port's three backends."""
+the brute, fixed_radius and trueknn backends (the sharded fabric, host and
+placed: ``test_torch_workloads_sharded.py``)."""
 
 import numpy as np
 import pytest
