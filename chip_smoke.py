@@ -8,8 +8,8 @@ Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 PyTorch version on the card, then drives the port's entry points (the
 trueknn, brute, fixed_radius, distributed, sharded and mutable backends,
 the planner's generic routes, all-pairs self-queries, the graph
-workloads, the server, the kNN-LM datastore and the launcher) at full
-width through the user API and checks what comes out:
+workloads, the server, the kNN-LM datastore, the launcher and the LM
+stack) at full width through the user API and checks what comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -125,10 +125,30 @@ width through the user API and checks what comes out:
    ``repro_torch.launch.serve.main`` in process: ``--mode knn`` on kitti
    2^20 (open loop), the placed sharded index on a 4-position mesh,
    ``--mode graph`` and ``--mode dbscan`` on 2^16 points;
+19. the LM stack (``repro_torch.models``, ``serve``), eager PyTorch in
+   bf16 with float32 accumulation: (a) Qwen3-0.6B at full width and
+   depth from a seeded generator on the card, ``param_count()`` equal to
+   the parameters built; a float32 copy's prefill (2 x 128 tokens, TF32
+   off) against the CPU's float32 run; bf16 ``decode_step`` (16 teacher-
+   forced steps) against ``forward``; ``BatchedServer`` serving 64
+   requests of 16-256 tokens through 8 slots, 64 new tokens greedy, each
+   completion equal to a direct prefill + ``decode_step`` loop over the
+   same padded batch (tokens/s, prefill and decode-step p50/p99, peak
+   memory); (c) a kNN-LM datastore of its final hidden states over 2^18
+   tokens of ``SyntheticLMStream``, ``knn_logprobs`` on 4096 rows of fresh
+   tokens at the padded vocab: retrieval bitwise equal to a direct query,
+   rows summing to 1 within 1e-5, both kernels launched; (b) the other
+   nine architectures at full width, depth cut to one period plus the
+   leading dense layers (printed as ``reduced``; SmolLM-135M whole), MoE
+   capacity dropless: a prefill of 2 prompts (longer than the window for
+   gemma3-27b and recurrentgemma-9b, so the ring wraps; 256 prefix
+   embeddings for musicgen-medium and internvl2-26b) and 16 decode steps
+   against ``forward``, in bf16 and in a float32 copy (wall time and peak
+   memory printed);
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-18) and read
+are zeroed just before each entry point (phases 4, 5 and 9-19) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -2137,6 +2157,452 @@ def phase_apps(dev, kitti_np, b2, tally):
     return out
 
 
+# -- phase 19: the LM stack ---------------------------------------------------
+
+
+LM_ARCH = "qwen3-0.6b"  # phase 19 (a): full width and depth
+LM_PROMPT = 128  # tokens a prompt in the consistency checks
+LM_STEPS = 16  # teacher-forced decode steps checked against forward
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 64, 8, 64  # phase 19 (a) server
+STORE_ROWS, STORE_SEQ = 256, 1024  # phase 19 (c): 2^18 tokens of the stream
+#: f32 prefill logits on the card (TF32 off) vs the CPU: the same f32
+#: formula with other summation orders through 28 layers; a TF32 or bf16
+#: product (10 or 8 mantissa bits) would err by about 1e-2 or more on
+#: logits of standard deviation ~1
+F32_LOGIT_ATOL = 2e-3
+#: bf16 decode vs bf16 forward: the same bf16 model, but the two paths'
+#: products round their bf16 outputs at other shapes, so the residual
+#: stream drifts by some bf16 steps (2^-8 relative) over the layers; on
+#: logits of standard deviation ~1 the mean error stays under 0.02.  The
+#: largest stays under 0.5: where a token's k-th and next router
+#: probabilities lie within that drift, its MoE layer picks another
+#: expert in one path (deepseek-v2-lite: 0.27 in one run)
+BF16_LOGIT_MEAN, BF16_LOGIT_MAX = 0.02, 0.5
+#: float32 decode vs float32 forward (TF32 off): the reference's own
+#: tolerance for it (tests/test_models.py:86, atol 1e-3)
+F32_DECODE_MEAN, F32_DECODE_MAX = 1e-4, 1e-3
+
+
+def forward_logits(model, cfg, tokens, pe, rows):
+    """Logits of ``forward`` at positions ``rows`` (f32, (B, len, V))."""
+    from repro_torch.models import forward
+    from repro_torch.models.model import _unembed_weight
+
+    x, _ = forward(model, cfg, tokens, pe)
+    return (x[:, rows] @ _unembed_weight(model)).float()
+
+
+def logit_gap(tag, got, want, mean_tol, max_tol):
+    d = (got - want).abs()
+    mean, top = float(d.mean()), float(d.max())
+    check(mean <= mean_tol and top <= max_tol,
+          f"{tag}: |logits diff| mean {mean:.3g} max {top:.3g} beyond "
+          f"{mean_tol} / {max_tol}")
+    return mean, top
+
+
+def decode_vs_forward(model, cfg, dev, tokens, pe,
+                      tol=(BF16_LOGIT_MEAN, BF16_LOGIT_MAX)):
+    """Prefill ``tokens[:, :-LM_STEPS]``, then decode its last LM_STEPS
+    tokens one at a time (teacher forced); the prefill's logits and each
+    step's against ``forward`` over the whole sequence.  Returns the
+    mean and max |diff|, the greedy agreement and the seconds of the
+    prefill and of the decode steps."""
+    import torch
+
+    from repro_torch.models import decode_step, make_decode_caches, prefill
+
+    b, s = tokens.shape
+    p_len = 0 if pe is None else pe.shape[1]
+    plen = s - LM_STEPS
+    caches = make_decode_caches(cfg, b, p_len + s + 1, device=dev)
+    tok = torch.as_tensor(tokens, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = prefill(model, cfg, tok[:, :plen], caches, prefix_embeds=pe)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = [lg]
+    for i in range(LM_STEPS):
+        lg, caches = decode_step(model, cfg, tok[:, plen + i:plen + i + 1],
+                                 p_len + plen + i, caches)
+        got.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = torch.stack(got, 1)
+    want = forward_logits(model, cfg, tok, pe,
+                          slice(p_len + plen - 1, p_len + s))
+    mean, top = logit_gap(f"{cfg.name} {cfg.compute_dtype} decode vs "
+                          "forward", got, want, *tol)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return mean, top, agree, t1 - t0, (t2 - t1) / LM_STEPS
+
+
+def f32_copy(model, cfg, device):
+    """The same weights in float32 (a float32 config) on ``device``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import LM
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    m = LM(cfg32, "meta").to_empty(device=device)
+    with torch.no_grad():
+        for dst, src in zip(m.parameters(), model.parameters()):
+            dst.copy_(src.float())
+    return m, cfg32
+
+
+def timed(fn, times):
+    """``fn`` that also records its seconds to a device sync."""
+    import torch
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    return call
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def phase_lm_qwen(dev, rng):
+    """Phase 19 (a): Qwen3-0.6B at full width and depth in bf16."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models import make_decode_caches, prefill
+    from repro_torch.serve import BatchedServer, ServeConfig
+
+    out = {}
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    torch.cuda.synchronize()
+    built = sum(p.numel() for p in model.parameters())
+    check(built == cfg.param_count(), f"param_count {cfg.param_count()} != "
+          f"{built} built")
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size} -> {cfg.padded_vocab}, {built} parameters "
+        f"(= param_count) in {cfg.param_dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # float32 copy on the card (TF32 off) vs the CPU
+    tokens = rng.integers(0, cfg.vocab_size, (2, LM_PROMPT))
+    m32, cfg32 = f32_copy(model, cfg, dev)
+    cpu32, _ = f32_copy(model, cfg, torch.device("cpu"))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        lg_card, _ = prefill(m32, cfg32, tokens, make_decode_caches(
+            cfg32, 2, LM_PROMPT + 1, device=dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lg_cpu, _ = prefill(cpu32, cfg32, tokens, make_decode_caches(
+            cfg32, 2, LM_PROMPT + 1, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+    err = float((lg_card.cpu() - lg_cpu).abs().max())
+    check(err <= F32_LOGIT_ATOL, f"f32 prefill card vs CPU {err}")
+    log(f"  float32 copy, prefill 2 x {LM_PROMPT}: card (TF32 off) "
+        f"{card_s:.4f}s vs CPU {cpu_s:.4f}s, max |logit diff| {err:.3g} "
+        f"(<= {F32_LOGIT_ATOL}); logit std {float(lg_cpu.std()):.3f}")
+    del m32, cpu32, lg_card, lg_cpu
+    torch.cuda.empty_cache()
+
+    # bf16 decode vs forward
+    with torch.inference_mode():
+        seq = rng.integers(0, cfg.vocab_size, (2, LM_PROMPT + LM_STEPS))
+        mean, top, agree, pre_s, step_s = decode_vs_forward(model, cfg, dev,
+                                                            seq, None)
+    log(f"  bf16 decode vs forward, 2 x {LM_PROMPT} + {LM_STEPS} teacher-"
+        f"forced steps: |logit diff| mean {mean:.4g} max {top:.4g} (<= "
+        f"{BF16_LOGIT_MEAN} / {BF16_LOGIT_MAX}), greedy agreement "
+        f"{agree:.4f}; prefill {pre_s * 1e3:.2f} ms, decode step "
+        f"{step_s * 1e3:.2f} ms")
+    out["decode_vs_forward"] = (mean, top, agree)
+
+    # BatchedServer on the card against the direct loop
+    lens = rng.integers(16, 257, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    server = BatchedServer(cfg, model, ServeConfig(batch_slots=SERVE_SLOTS))
+    pre_t, dec_t = [], []
+    server.prefill = timed(server.prefill, pre_t)
+    server.decode = timed(server.decode, dec_t)
+    for p in prompts:
+        server.submit(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    outs = server.run(max_new_tokens=SERVE_NEW)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    held = base / 2**30
+    n_tok = sum(len(o) for o in outs)
+    check(len(outs) == SERVE_REQUESTS and all(len(o) == SERVE_NEW
+                                              for o in outs),
+          "server completions")
+    direct = []
+    with torch.inference_mode():
+        for g in range(0, SERVE_REQUESTS, SERVE_SLOTS):
+            batch = prompts[g:g + SERVE_SLOTS]
+            plen = max(len(p) for p in batch)
+            toks = np.zeros((len(batch), plen), np.int64)
+            for i, p in enumerate(batch):
+                toks[i, plen - len(p):] = p
+            caches = make_decode_caches(cfg, len(batch), plen + SERVE_NEW + 1,
+                                        device=dev)
+            lg, caches = prefill(model, cfg, toks, caches)
+            rows = []
+            for i in range(SERVE_NEW):
+                tok = torch.argmax(lg, -1)[:, None]
+                rows.append(tok)
+                if i + 1 < SERVE_NEW:
+                    lg, caches = decode_step(model, cfg, tok, plen + i,
+                                             caches)
+            direct += torch.cat(rows, 1).tolist()
+    check(outs == direct, "server completions vs the direct loop")
+    out.update(serve_s=wall, tokens_per_s=n_tok / wall)
+    log(f"  BatchedServer: {SERVE_REQUESTS} requests (prompts "
+        f"{int(lens.min())}-{int(lens.max())} tokens), {SERVE_SLOTS} slots, "
+        f"{SERVE_NEW} new tokens greedy: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tokens/s; prefill ms p50 {pct(pre_t, 50):.2f} "
+        f"p99 {pct(pre_t, 99):.2f} ({len(pre_t)} batches); decode step ms "
+        f"p50 {pct(dec_t, 50):.2f} p99 {pct(dec_t, 99):.2f} ({len(dec_t)} "
+        f"steps); peak {peak:.2f} GiB ({held:.2f} GiB held before it: the "
+        f"weights and earlier phases' tensors); every completion equal to "
+        f"the direct prefill + decode_step loop")
+    busy = decode_trace(model, cfg, dev, prompts[:SERVE_SLOTS])
+    if busy is None:
+        log("  decode trace: the profiler saw no device time")
+    else:
+        dev_ms, n_kernels = busy
+        step_ms = pct(dec_t, 50)
+        log(f"  decode trace (torch.profiler, 8 steps at batch "
+            f"{SERVE_SLOTS}): {dev_ms:.3f} ms of kernels and {n_kernels:.0f} "
+            f"kernel launches a step; against the server's p50 step "
+            f"{step_ms:.2f} ms the card is busy {dev_ms / step_ms:.1%}")
+        out.update(decode_kernel_ms=dev_ms, decode_kernels=n_kernels)
+    return model, cfg, out
+
+
+def decode_trace(model, cfg, dev, prompts):
+    """Device time and kernel launches per decode step, from a
+    ``torch.profiler`` trace of 8 steps after a prefill of ``prompts``;
+    None when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, make_decode_caches, prefill
+
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    steps = 8
+    with torch.inference_mode():
+        caches = make_decode_caches(cfg, len(prompts), plen + steps + 2,
+                                    device=dev)
+        lg, caches = prefill(model, cfg, toks, caches)
+        tok = torch.argmax(lg, -1)[:, None]
+        lg, caches = decode_step(model, cfg, tok, plen, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                tok = torch.argmax(lg, -1)[:, None]
+                lg, caches = decode_step(model, cfg, tok, plen + 1 + i,
+                                         caches)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if dev_us <= 0:
+        return None
+    return dev_us / 1e3 / steps, sum(e.count for e in kernels) / steps
+
+
+def phase_lm_archs(dev, rng):
+    """Phase 19 (b): every other architecture at full width, its depth cut
+    to one period plus the leading dense layers (SmolLM-135M whole)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    out = {}
+    for name, full in sorted(ARCHS.items()):
+        if name == LM_ARCH:
+            continue
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        depth = (full.n_layers if name == "smollm-135m"
+                 else full.period + full.first_k_dense)
+        # dropless capacity for the consistency check, as the reference's
+        # own decode-vs-forward test sets it: a token's experts then do
+        # not depend on how many tokens share the call
+        cf = float(full.n_experts) if full.n_experts else \
+            full.moe_capacity_factor
+        cfg = dataclasses.replace(full, n_layers=depth,
+                                  moe_capacity_factor=cf)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        n = sum(p.numel() for p in model.parameters())
+        plen = LM_PROMPT
+        if "local" in full.pattern:  # prompts longer than the window: the
+            plen = full.local_window + LM_PROMPT  # ring wraps
+        if full.family == "ssm":
+            plen = 2 * full.ssm_chunk  # two SSD chunks in the prefill
+        seq = rng.integers(0, cfg.vocab_size, (2, plen + LM_STEPS))
+        pe = None
+        if cfg.prefix_len:
+            pe = (torch.randn((2, cfg.prefix_len, cfg.d_model), device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(SEED)) * 0.02)
+        with torch.inference_mode():
+            mean, top, agree, pre_s, step_s = decode_vs_forward(
+                model, cfg, dev, seq, pe)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        # the float32 copy of the same weights, to the reference's
+        # tolerance: tells a fault from bf16 rounding
+        m32, cfg32 = f32_copy(model, cfg, dev)
+        del model
+        with torch.inference_mode():
+            mean32, top32, agree32, _, _ = decode_vs_forward(
+                m32, cfg32, dev, seq, None if pe is None else pe.float(),
+                tol=(F32_DECODE_MEAN, F32_DECODE_MAX))
+        del m32
+        cut = (f"reduced: n_layers {full.n_layers} -> {depth}"
+               if depth != full.n_layers else "full depth")
+        log(f"  {name}: {cut}; d_model {cfg.d_model}, {n} parameters"
+            + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, "
+               f"capacity factor {cf:g} (dropless)" if cfg.n_experts else "")
+            + (f", {cfg.prefix_len} prefix embeds" if pe is not None else "")
+            + f"; prompts 2 x {plen}: |logit diff| mean {mean:.4g} max "
+            f"{top:.4g}, greedy agreement {agree:.4f}; prefill "
+            f"{pre_s * 1e3:.2f} ms, decode step {step_s * 1e3:.2f} ms; wall "
+            f"{wall:.2f}s, peak {peak:.2f} GiB above what was held before; "
+            f"float32 copy: mean "
+            f"{mean32:.3g} max {top32:.3g}, agreement {agree32:.4f}")
+        out[name] = {"wall_s": wall, "peak_gib": peak, "mean": mean,
+                     "max": top, "agree": agree, "f32_max": top32}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_store(dev, model, cfg, tally):
+    """Phase 19 (c): a kNN-LM datastore of Qwen3-0.6B's own final hidden
+    states over 2^18 tokens of the synthetic stream; ``knn_logprobs`` on
+    4096 rows of fresh tokens at the padded vocab."""
+    import torch
+
+    from repro_torch import KnnSpec
+    from repro_torch.core.knnlm import build_datastore, knn_logprobs
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import forward
+
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=STORE_SEQ,
+        global_batch=STORE_ROWS, seed=SEED))
+    t0 = time.perf_counter()
+    data = stream.batch_at(0)
+    queries = stream.batch_at(1)["tokens"][: ROWS // STORE_SEQ]
+    gen_s = time.perf_counter() - t0
+
+    def hidden(tokens, chunk=16):
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, len(tokens), chunk):
+                x, _ = forward(model, cfg, tokens[i:i + chunk])
+                outs.append(x.float().reshape(-1, cfg.d_model).cpu())
+        return torch.cat(outs).numpy()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hid = hidden(data["tokens"])
+    q_hid = hidden(queries)
+    fwd_s = time.perf_counter() - t0
+    n = hid.shape[0]
+    check(hid.shape == (STORE_ROWS * STORE_SEQ, cfg.d_model)
+          and np.isfinite(hid).all(), "hidden states")
+    store, build_s, _ = counted(
+        "kNN-LM build", lambda: build_datastore(
+            hid, data["labels"].reshape(-1), device=dev), tally, need=())
+    del hid
+    seen = []
+    query = store.index.query
+
+    def keep(*a, **kw):
+        res = query(*a, **kw)
+        seen.append(res)
+        return res
+
+    store.index.query = keep
+    try:
+        probs, wall, counts = counted(
+            "knn_logprobs (LM states)",
+            lambda: knn_logprobs(store, q_hid, cfg.padded_vocab, k=8), tally,
+            need=("pairwise_topk", "grid_round"))
+    finally:
+        del store.index.query
+    check(probs.shape == (ROWS, cfg.padded_vocab)
+          and np.isfinite(probs).all(), "kNN-LM distribution shape")
+    sums = probs.sum(1, dtype=np.float64)
+    check(np.abs(sums - 1.0).max() <= 1e-5, "kNN-LM rows sum to 1")
+    retrieval = seen[0]
+    direct = store.index.query(store.projector(q_hid), KnnSpec(8))
+    check(np.array_equal(retrieval.dists, direct.dists)
+          and np.array_equal(retrieval.idxs, direct.idxs),
+          "kNN-LM retrieval vs a direct query")
+    log(f"  kNN-LM on {cfg.name}'s final hidden states: {n} tokens of the "
+        f"synthetic stream ({STORE_ROWS} x {STORE_SEQ}, drawn in "
+        f"{gen_s:.2f}s), forward in bf16 and to the host in {fwd_s:.2f}s; "
+        f"PCA to 3-D and a trueknn index on the card in {build_s:.2f}s; "
+        f"knn_logprobs on {ROWS} rows at vocab {cfg.padded_vocab}: "
+        f"{wall:.4f}s, launches {counts}; retrieval bitwise equal to a "
+        f"direct query, rows sum to 1 within {np.abs(sums - 1.0).max():.2e};"
+        f" start {retrieval.timings.get('start_radius_source')}, rounds "
+        f"{retrieval.n_rounds}")
+    return {"stream_s": gen_s, "hidden_s": fwd_s, "store_build_s": build_s,
+            "knn_logprobs_s": wall}
+
+
+def phase_lm(dev, tally):
+    """Phase 19: the LM stack on the card (see the module docstring)."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    t0 = time.perf_counter()
+    model, cfg, out["qwen"] = phase_lm_qwen(dev, rng)
+    out["qwen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["store"] = phase_lm_store(dev, model, cfg, tally)
+    out["store_s"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["archs"] = phase_lm_archs(dev, rng)
+    out["archs_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2150,6 +2616,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in float32 throughout, as the reference's
+    # do (phase 19)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2239,7 +2708,15 @@ def main() -> int:
     apps_s = phase_apps(dev, kitti_np, b2, tally)
     log(f"  phase 18 took {time.perf_counter() - t0:.1f}s; seconds "
         f"{json.dumps(apps_s)}")
-    log(f"  phases 9-18 launches {tally}")
+    t0 = time.perf_counter()
+    log("phase 19: the LM stack: Qwen3-0.6B at full width and depth, "
+        "BatchedServer, a kNN-LM datastore of its hidden states, the other "
+        "nine architectures at full width")
+    lm_s = phase_lm(dev, tally)
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f}s; parts "
+        f"qwen {lm_s['qwen_s']:.1f}s, kNN-LM {lm_s['store_s']:.1f}s, other "
+        f"architectures {lm_s['archs_s']:.1f}s")
+    log(f"  phases 9-19 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -2261,7 +2738,7 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
                         "phase 11", "phase 12", "phase 15", "phase 17",
-                        "phase 18"],
+                        "phase 18", "phase 19"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -2284,7 +2761,7 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
                         "phase 10", "phase 11", "phase 13", "phase 14",
-                        "phase 16", "phase 17", "phase 18"],
+                        "phase 16", "phase 17", "phase 18", "phase 19"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

@@ -15,10 +15,13 @@ answer every spec and metric through the planner;
 ``repro_torch.workloads`` builds kNN graphs and DBSCAN clusterings on
 top, ``NeighborServer`` serves any of them behind a microbatching
 request queue, ``repro_torch.core.knnlm`` is a kNN-LM datastore on a
-resident index, and ``python -m repro_torch.launch.serve`` is the
-serving launcher.  Indexes live on the card by default
-and run the hand-written CUDA kernels (``csrc/``); ``device="cpu"`` runs
-their plain PyTorch versions.  This package imports torch, numpy and the
+resident index, ``repro_torch.models`` / ``configs`` / ``serve`` are the
+LM stack (ten architectures' decoders and ``BatchedServer``), and
+``python -m repro_torch.launch.serve`` is the serving launcher (LM and
+neighbor search); ``repro_torch.examples`` holds runnable examples.
+Indexes and models live on the card by default; indexes run the
+hand-written CUDA kernels (``csrc/``), and ``device="cpu"`` runs their
+plain PyTorch versions.  This package imports torch, numpy and the
 standard library only.
 """
 

@@ -1,11 +1,12 @@
-"""Index state carried in from numpy arrays.
+"""State carried in from numpy arrays.
 
-The port has no weights; its state is the index: the hash grids and
-TrueKNN's radius lattice and warm-start values, and a kNN-LM datastore's
-projected keys, targets and PCA projection.  These functions build that
-state from plain numpy arrays and floats — whatever produced them
-(another process, a saved index, the JAX reference package) — so two
-implementations can be fed the same grid, warm state or datastore.
+The port's state is the index — the hash grids and TrueKNN's radius
+lattice and warm-start values, and a kNN-LM datastore's projected keys,
+targets and PCA projection — and an LM's weights.  These functions build
+that state from plain numpy arrays and floats, whatever produced them
+(another process, a saved index, the JAX reference package), so two
+implementations can be fed the same grid, warm state, datastore or
+weights.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ._device import resolve_device
 from .core.grid import Grid
 
 __all__ = ["grid_from_numpy", "trueknn_state_from_numpy", "TrueKNNState",
-           "datastore_from_reference"]
+           "datastore_from_reference", "lm_params_from_reference"]
 
 
 def grid_from_numpy(buckets, point_cells, origin, inv_cell, res, table_size,
@@ -105,3 +106,71 @@ def datastore_from_reference(keys3d, targets, mean, components, *,
                                components=np.asarray(components, np.float32)),
         index=build_index(keys3d, backend=backend, device=device, **cfg),
     )
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (numpy's ``ml_dtypes``
+    extension type) come across through their bits."""
+    arr = np.array(arr, order="C")  # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def lm_params_from_reference(tree, cfg, device="cuda"):
+    """A port ``models.LM`` on ``device`` holding the reference's weights.
+
+    ``tree`` is the reference's parameter pytree with numpy leaves:
+    ``embed``, ``final_norm``, ``unembed`` (unless tied) and ``layers`` =
+    ``{"prefix": [..], "body": [..], "suffix": [..]}``, whose body entry j
+    stacks the leaves of layers ``stack_plan(cfg)[1][j]`` along a leading
+    axis.  Each layer's leaves land in the parameters of the same names.
+    """
+    from .models.model import LM
+    from .models.transformer import stack_plan
+
+    dev = resolve_device(device)
+    model = LM(cfg, "meta")
+    pre, scanned, suffix = stack_plan(cfg)
+    layers = tree["layers"]
+    per_layer = {i: layers["prefix"][n] for n, i in enumerate(pre)}
+    for j, ids in enumerate(scanned):
+        for period, i in enumerate(ids):
+            per_layer[i] = _index_tree(layers["body"][j], period)
+    per_layer.update({i: layers["suffix"][n] for n, i in enumerate(suffix)})
+
+    flat = {}
+    for key in ("embed", "final_norm", "unembed"):
+        if key in tree:
+            flat[key] = tree[key]
+    for i, leaves in per_layer.items():
+        _flatten(leaves, f"layers.{i}", flat)
+    want = {name for name, _ in model.named_parameters()}
+    if set(flat) != want:
+        raise ValueError(f"reference leaves {sorted(set(flat) ^ want)} do "
+                         "not match the port's parameters")
+    state = {name: _tensor(arr) for name, arr in flat.items()}
+    model.to_empty(device=dev)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            src = state[name]
+            if (tuple(src.shape), src.dtype) != (tuple(param.shape),
+                                                 param.dtype):
+                raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} "
+                                 f"!= {tuple(param.shape)} {param.dtype}")
+            param.copy_(src)
+    return model
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _flatten(tree, prefix, out):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}.{k}", out)
+        else:
+            out[f"{prefix}.{k}"] = v

@@ -1,6 +1,11 @@
-"""Serving launcher of the port: neighbor-search serving through the
-``NeighborServer`` front-end, on the card (``--device cuda``, the default)
-or on the CPU's plain kernel versions (``--device cpu``).
+"""Serving launcher of the port: batched LM serving on any arch, or
+neighbor-search serving through the ``NeighborServer`` front-end, on the
+card (``--device cuda``, the default) or on the CPU (``--device cpu``:
+the kernels' plain versions).
+
+    # LM serving (batched, greedy) on the arch's smoke config
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --requests 16 --max-new 24
 
     # neighbor search, open loop: Poisson arrivals hit the microbatching
     # server at --rate requests/second (each request = one query point)
@@ -40,9 +45,6 @@ or on the CPU's plain kernel versions (``--device cpu``).
     # and reports read p99 for each
     PYTHONPATH=src python -m repro_torch.launch.serve --mode knn \
         --arrival open --rate 500 --mutate 50
-
-``--mode lm`` (batched LM serving) needs the LM stack, which the port
-does not have yet: it exits non-zero.
 """
 
 from __future__ import annotations
@@ -53,15 +55,41 @@ import time
 
 import numpy as np
 
-LM_MISSING = (
-    "--mode lm needs the LM stack (models, serving engine), which "
-    "repro_torch has not ported yet: ROADMAP queue 1 item 16.  Use --mode "
-    "knn, graph or dbscan."
-)
+
+def _lm_params(cfg, device):
+    """The served model: random weights from seed 0 on ``device``."""
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch.models import init_params
+
+    dev = resolve_device(device)
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
 
 
 def _run_lm(args):
-    raise SystemExit(LM_MISSING)
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.serve import BatchedServer, ServeConfig
+
+    cfg = smoke_config(get_config(args.arch))
+    params = _lm_params(cfg, args.device)
+    server = BatchedServer(
+        cfg, params, ServeConfig(batch_slots=args.slots, temperature=0.0)
+    )
+    rng = np.random.default_rng(0)
+    for _ in range(args.requests):
+        plen = int(rng.integers(4, 24))
+        server.submit(rng.integers(0, cfg.vocab_size, plen).tolist())
+
+    t0 = time.perf_counter()
+    outs = server.run(max_new_tokens=args.max_new)
+    dt = time.perf_counter() - t0
+    total_toks = sum(len(o) for o in outs)
+    print(
+        f"served {len(outs)} requests, {total_toks} tokens in {dt:.2f}s "
+        f"({total_toks/dt:.0f} tok/s)"
+    )
+    print("sample completion:", outs[0][:12])
 
 
 def _mesh(args):
@@ -471,8 +499,9 @@ def main(argv=None):
                     "cards, cycled when there are fewer than N; the CPU at "
                     "every position with --device cpu")
     ap.add_argument("--device", default="cuda",
-                    help="where the index lives: cuda (the card, the "
-                    "default) or cpu (the kernels' plain versions)")
+                    help="where the index or the model lives: cuda (the "
+                    "card, the default) or cpu (the kernels' plain "
+                    "versions)")
     ap.add_argument("--index", default="default",
                     help="tenant name the resident index serves under")
     ap.add_argument("--max-queue", type=int, default=None,

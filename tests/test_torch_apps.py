@@ -307,15 +307,35 @@ def test_launcher_mutating_tenant_serves_without_errors():
     assert out.count("open loop: 64/64 requests served") == 2
 
 
-def test_launcher_lm_mode_exits_nonzero_naming_the_roadmap():
-    with pytest.raises(SystemExit) as exc:
-        port_serve.main(["--mode", "lm"])
-    assert exc.value.code != 0 and "item 16" in str(exc.value.code)
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "ROADMAP" in out.stderr
-    assert out.stdout == ""
+def test_launcher_lm_mode_equals_reference(monkeypatch):
+    """``--mode lm``: the reference launcher serves the arch's smoke
+    config with ``init_params(PRNGKey(0))``; the port's, given the same
+    weights through ``convert.lm_params_from_reference``, prints the same
+    request and token counts and the same sample completion."""
+    import jax
+
+    from repro.configs import get_config, smoke_config
+    from repro.models import init_params
+    from repro_torch.convert import lm_params_from_reference
+
+    argv = ["--mode", "lm", "--arch", "qwen3-0.6b", "--requests", "5",
+            "--max-new", "6", "--slots", "2"]
+
+    def reference_weights(cfg, device):
+        ref_cfg = smoke_config(get_config(cfg.name))
+        tree = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(0),
+                                                    ref_cfg))
+        return lm_params_from_reference(tree, cfg, device)
+
+    monkeypatch.setattr(port_serve, "_lm_params", reference_weights)
+    got = _port_run(argv + ["--device", "cpu"])
+    want = _ref_run(argv, monkeypatch)
+    served = r"served (\d+) requests, (\d+) tokens in"
+    assert re.findall(served, got) == re.findall(served, want) == [
+        ("5", "30")]
+    sample = [line for line in want.splitlines()
+              if line.startswith("sample completion:")]
+    assert len(sample) == 1 and sample[0] in got.splitlines()
 
 
 def test_launcher_defaults_to_the_card():

@@ -77,6 +77,29 @@ store = build_datastore(np.random.default_rng(0).normal(
 assert knn_logprobs(store, np.zeros((2, 8), np.float32), 7).shape == (2, 7)
 import repro_torch.core as rcore
 assert rcore.build_index is build_index
+import torch
+import repro_torch.models
+import repro_torch.configs
+import repro_torch.serve
+import repro_torch.data
+import repro_torch.examples
+from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.data import DataConfig, SyntheticLMStream
+from repro_torch.examples import quickstart, serve_knn
+from repro_torch.models import forward, init_params
+from repro_torch.serve import BatchedServer, ServeConfig
+
+cfg = smoke_config(get_config("deepseek-v2-lite-16b"))
+model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+assert forward(model, cfg, np.zeros((1, 4), np.int64))[0].shape == (1, 4, 64)
+server = BatchedServer(cfg, model, ServeConfig(batch_slots=2))
+server.submit([1, 2, 3])
+assert len(server.run(max_new_tokens=2)[0]) == 2
+assert len(ARCHS) == 10 and get_config("qwen3-0.6b").param_count() > 0
+toks = SyntheticLMStream(DataConfig(64, 8, 2)).batch_at(0)["tokens"]
+assert toks.shape == (2, 8)
+repro_torch.launch.serve.main(["--mode", "lm", "--requests", "2",
+                               "--max-new", "2", "--device", "cpu"])
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
