@@ -8,8 +8,9 @@ Builds both CUDA kernels from ``src/repro_torch/csrc`` (one
 PyTorch version on the card, then drives the port's entry points (the
 trueknn, brute, fixed_radius, distributed, sharded and mutable backends,
 the planner's generic routes, all-pairs self-queries, the graph
-workloads, the server, the kNN-LM datastore, the launcher and the LM
-stack) at full width through the user API and checks what comes out:
+workloads, the server, the kNN-LM datastore, the launcher, the LM stack
+and its training) at full width through the user API and checks what
+comes out:
 
 1. device and build;
 2. ``pairwise_topk`` kernel vs plain version: L2 at d = 2, 3, 16, L1, L∞,
@@ -145,10 +146,28 @@ stack) at full width through the user API and checks what comes out:
    embeddings for musicgen-medium and internvl2-26b) and 16 decode steps
    against ``forward``, in bf16 and in a float32 copy (wall time and peak
    memory printed);
+20. training (``repro_torch.optim``, ``train``, the examples): (a)
+   Qwen3-0.6B at full width and depth, bf16 params and f32 moments,
+   ``Trainer`` over ``SyntheticLMStream`` at batch 8 x 1024 (two loss
+   chunks) for 30 steps: every loss finite, no bad step, the mean of the
+   last 5 losses below the first 5's (step ms p50/p99, tokens/s, peak
+   memory, and one step's ``torch.profiler`` trace); (b) its float32
+   copy's ``loss_fn`` gradients on 2 x 128 tokens, card (TF32 off)
+   against the CPU, each leaf to a stated share of its largest, and one
+   ``adamw_update`` of the same gradients on both; (c) the nine other
+   architectures at ``launch.train``'s ``small`` preset: 3 float32 trainer
+   steps on the card against the same on the CPU, then one bf16 step;
+   (d) SmolLM-135M whole in bf16: a checkpoint at step 4 (to a
+   temporary directory, removed after), a fresh ``Trainer`` restored from
+   it (parameters and moments bitwise equal to those saved) replaying
+   steps 4-5 against the uninterrupted run; (e)
+   ``repro_torch.examples.knnlm_serve.main(["--device", "cuda"])``: both
+   kernels launched, kNN-LM at lambda 0.25 below the LM-only perplexity,
+   its retrieval bitwise equal to a direct query;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-19) and read
+are zeroed just before each entry point (phases 4, 5 and 9-20) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -156,6 +175,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2603,6 +2623,437 @@ def phase_lm(dev, tally):
     return out
 
 
+# -- phase 20: training -------------------------------------------------------
+
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024  # phase 20 (a): two loss chunks of 512
+TRAIN_STEPS = 30  # phase 20 (a): Qwen3-0.6B steps
+GRAD_ROWS = 2  # phase 20 (b): one 2 x LM_PROMPT batch, card vs CPU
+ARCH_BATCH, ARCH_SEQ, ARCH_STEPS = 4, 128, 3  # phase 20 (c)
+CKPT_AT, CKPT_STEPS = 4, 6  # phase 20 (d): save at step 4, replay 4..5
+#: (b) float32 gradients, card (TF32 off) vs CPU, each leaf's max |diff|
+#: over its max |g|: the same formulas with other summation orders in
+#: the products and the backward's reductions through 28 layers (the
+#: CPU tests hold the port to jax.grad at 1e-4 of it; phase 19 held the
+#: forward's logits to 7.6e-6)
+GRAD_REL_TOL = 1e-3
+#: (b) one adamw_update of the same gradients, card vs CPU: the same
+#: element-wise float32 ops (IEEE division and square root on both, and
+#: count = 1 makes b ** count exact), so at most an ulp of the parameter
+UPDATE_ULP_TOL = 2**-22
+#: (c) float32 losses of 3 trainer steps, card (TF32 off) vs CPU: the
+#: gradients agree to ~1e-6 of their scale and AdamW's first steps move
+#: each element by ~lr whatever its size, so losses agree to ~1e-5; a
+#: router near-tie that flips one token's expert in an MoE layer would
+#: move the loss by ~1e-4 (one token of 512)
+ARCH_LOSS_RTOL = 1e-3
+#: (d) the replayed steps run the same ops on the same restored state;
+#: only kernels that accumulate with atomics (index-add backwards of the
+#: embedding lookup, in bf16) can differ run to run
+REPLAY_RTOL = 1e-3
+
+
+def train_cfg(steps, **kw):
+    """Phase 20's ``TrainConfig``: peak lr 1e-3 after 5 warmup steps,
+    no logging, ``kw`` overriding."""
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(**{"peak_lr": 1e-3, "warmup_steps": 5,
+                          "total_steps": steps, "log_every": 10**9, **kw})
+
+
+def record_steps(step_fn, times, metrics):
+    """``step_fn`` that also records its seconds to a device sync and its
+    metrics."""
+    import torch
+
+    def call(*a):
+        t0 = time.perf_counter()
+        out = step_fn(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(out[2])
+        return out
+
+    return call
+
+
+def step_trace(trainer):
+    """Device time, kernel launches and the five operators whose kernels
+    took the most device time (name, ms, calls) in one train step, from
+    a ``torch.profiler`` trace; None when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(1, log=lambda *_: None)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if dev_us <= 0:
+        return None
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
+    return dev_us / 1e3, sum(e.count for e in kernels), [
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in top]
+
+
+def phase_train_qwen(dev):
+    """Phase 20 (a): Qwen3-0.6B at full width and depth trained by
+    ``Trainer`` over ``SyntheticLMStream``: bf16 params, f32 moments."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    opt = adamw_init(model)
+    tcfg = train_cfg(TRAIN_STEPS)
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    times, metrics = [], []
+    tr = Trainer(cfg, tcfg, model, opt, stream, record_steps(
+        make_train_step(cfg, tcfg), times, metrics))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    hist = tr.run(TRAIN_STEPS, log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(hist) == TRAIN_STEPS and np.isfinite(hist).all(),
+          f"qwen losses not all finite: {hist}")
+    check(all(m["bad_step"] == 0 for m in metrics), "a bad step")
+    first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    check(last < first, f"qwen loss did not fall: {first} -> {last}")
+    t0 = time.perf_counter()
+    stream.batch_at(0)
+    data_s = time.perf_counter() - t0
+    steady = times[2:]  # the first steps pay cuBLAS's and the allocator's
+    p50, p99 = pct(steady, 50), pct(steady, 99)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    log(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} bf16 "
+        f"parameters, f32 moments; {TRAIN_STEPS} steps at batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_SEQ // cfg.loss_chunk} loss "
+        f"chunks), peak lr {tcfg.peak_lr} warmup {tcfg.warmup_steps}: loss "
+        f"{hist[0]:.4f} -> {hist[-1]:.4f} (mean of the first 5 {first:.4f}, "
+        f"last 5 {last:.4f}), grad norm {gnorm[0]:.3f} -> {gnorm[-1]:.3f}, "
+        f"no bad step; {wall:.2f}s in all; step ms p50 {p50:.2f} p99 "
+        f"{p99:.2f} (steps 2-{TRAIN_STEPS - 1}; first {times[0] * 1e3:.1f}),"
+        f" {tokens / (p50 / 1e3):.1f} tokens/s at p50; the stream's batch "
+        f"{data_s * 1e3:.1f} ms on the host; peak {peak:.2f} GiB "
+        f"({held:.2f} GiB held before it)")
+    out = {"wall_s": wall, "step_p50_ms": p50, "step_p99_ms": p99,
+           "tokens_per_s": tokens / (p50 / 1e3), "peak_gib": peak,
+           "first5": first, "last5": last}
+    busy = step_trace(tr)
+    if busy is None:
+        log("  train step trace: the profiler saw no device time")
+    else:
+        dev_ms, n, top = busy
+        log(f"  train step trace (torch.profiler, one step): {dev_ms:.3f} "
+            f"ms of kernels and {n} kernel launches; against the p50 step "
+            f"{p50:.2f} ms the card is busy {dev_ms / p50:.1%}; most device "
+            f"time: " + "; ".join(f"{k} {ms:.3f} ms x {c}"
+                                  for k, ms, c in top))
+        out.update(step_kernel_ms=dev_ms, step_kernels=n)
+    return tr.params, cfg, out
+
+
+def grads_of(model, cfg, batch):
+    from repro_torch.models import loss_fn
+
+    loss, _ = loss_fn(model, cfg, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_train_grads(dev, model, cfg, rng):
+    """Phase 20 (b): the float32 copy of the trained Qwen3-0.6B, one
+    ``loss_fn`` and backward on the card (TF32 off) and on the CPU, then
+    one ``adamw_update`` of the CPU's gradients on each."""
+    import torch
+
+    from repro_torch.optim import adamw_init, adamw_update
+
+    seq = rng.integers(0, cfg.vocab_size, (GRAD_ROWS, LM_PROMPT + 1))
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    cpu = torch.device("cpu")
+    m32, cfg32 = f32_copy(model, cfg, dev)
+    cpu32, _ = f32_copy(model, cfg, cpu)
+    t0 = time.perf_counter()
+    loss_card, g_card = grads_of(m32, cfg32, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads_of(cpu32, cfg32, batch)
+    cpu_s = time.perf_counter() - t0
+    worst, worst_leaf = -1.0, None
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_card[n].cpu() - g).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, n
+    check(worst <= GRAD_REL_TOL,
+          f"f32 gradients card vs CPU: {worst_leaf} {worst:.3g}")
+    check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+          f"f32 loss card {loss_card} vs CPU {loss_cpu}")
+    del g_card
+    # one AdamW step of the same (the CPU's) gradients on each device
+    lr = 1e-3
+    g_dev = {n: g.to(dev) for n, g in g_cpu.items()}
+    t0 = time.perf_counter()
+    adamw_update(m32, g_dev, adamw_init(m32), lr)
+    torch.cuda.synchronize()
+    upd_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adamw_update(cpu32, g_cpu, adamw_init(cpu32), lr)
+    upd_cpu_s = time.perf_counter() - t0
+    upd_worst, bitwise = 0.0, True
+    for pc, pk in zip(cpu32.parameters(), m32.parameters()):
+        pc, pk = pc.detach(), pk.detach().cpu()
+        d = float((pk - pc).abs().max())
+        bitwise &= d == 0.0
+        upd_worst = max(upd_worst, d / max(float(pc.abs().max()), 1e-30))
+    check(upd_worst <= UPDATE_ULP_TOL,
+          f"adamw_update card vs CPU: {upd_worst:.3g} of max |p|")
+    log(f"  float32 copy, loss_fn + backward on {GRAD_ROWS} x {LM_PROMPT}: "
+        f"loss card {loss_card:.6f} CPU {loss_cpu:.6f}; max |grad diff| / "
+        f"leaf max |g| {worst:.3g} ({worst_leaf}; <= {GRAD_REL_TOL}); card "
+        f"{card_s:.3f}s, CPU {cpu_s:.3f}s; one adamw_update of the same "
+        f"gradients: max |param diff| {upd_worst:.3g} of max |p| (<= "
+        f"{UPDATE_ULP_TOL:.3g}), {'bitwise' if bitwise else 'not bitwise'}; "
+        f"card {upd_card_s:.3f}s, CPU {upd_cpu_s:.3f}s")
+    return {"grad_rel": worst, "update_rel": upd_worst,
+            "update_bitwise": bitwise, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_train_archs(dev):
+    """Phase 20 (c): the nine other architectures at ``launch.train``'s
+    ``small`` preset: 3 trainer steps in float32 on the card and on the
+    CPU from the same weights, then one bf16 step on the card."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import build
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, make_train_step
+
+    out = {}
+    for name in sorted(ARCHS):
+        if name == LM_ARCH:
+            continue
+        t0 = time.perf_counter()
+        cfg = build("small", name)
+        tcfg = train_cfg(ARCH_STEPS, peak_lr=3e-3, warmup_steps=1)
+        stream = SyntheticLMStream(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=ARCH_SEQ,
+            global_batch=ARCH_BATCH, seed=SEED))
+        cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED),
+                                "cpu")
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        hists, secs = {}, {}
+        for where, model in (("card", card_model), ("cpu", cpu_model)):
+            s0 = time.perf_counter()
+            tr = Trainer(cfg, tcfg, model, adamw_init(model), stream,
+                         make_train_step(cfg, tcfg))
+            hists[where] = tr.run(ARCH_STEPS, log=lambda *_: None)
+            if where == "card":
+                torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - s0
+        card, cpu = np.asarray(hists["card"]), np.asarray(hists["cpu"])
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        check(np.isfinite(card).all() and rel <= ARCH_LOSS_RTOL,
+              f"{name}: f32 losses card {card} vs CPU {cpu}")
+        del card_model, cpu_model
+        bf = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                 compute_dtype="bfloat16")
+        model = init_params(bf, torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+        tr = Trainer(bf, tcfg, model, adamw_init(model), stream,
+                     make_train_step(bf, tcfg))
+        bf_loss = tr.run(1, log=lambda *_: None)[0]
+        check(math.isfinite(bf_loss), f"{name}: bf16 step loss {bf_loss}")
+        wall = time.perf_counter() - t0
+        n = sum(p.numel() for p in model.parameters())
+        log(f"  {name}: small preset ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}, {n} parameters), "
+            f"{ARCH_STEPS} f32 steps at {ARCH_BATCH} x {ARCH_SEQ}: losses "
+            f"card {np.array2string(card, precision=6)} vs CPU max rel diff "
+            f"{rel:.3g} (<= {ARCH_LOSS_RTOL}); card {secs['card']:.2f}s, CPU "
+            f"{secs['cpu']:.2f}s; bf16 step loss {bf_loss:.4f}; {wall:.2f}s")
+        out[name] = {"rel": rel, "bf16_loss": bf_loss, "wall_s": wall}
+        del model, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_restart(dev):
+    """Phase 20 (d): SmolLM-135M whole, bf16: a checkpoint at step
+    CKPT_AT of a CKPT_STEPS-step run, restored into a fresh ``Trainer``
+    that replays the last steps."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, make_train_step
+
+    cfg = get_config("smollm-135m")
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        tcfg = train_cfg(CKPT_STEPS, checkpoint_every=CKPT_AT,
+                         checkpoint_dir=ck)
+
+        def trainer(seed):
+            model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed), dev)
+            return Trainer(cfg, tcfg, model, adamw_init(model), stream,
+                           make_train_step(cfg, tcfg))
+
+        tr = trainer(SEED)
+        t0 = time.perf_counter()
+        tr.run(CKPT_AT, log=lambda *_: None)  # saves step CKPT_AT
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        saved = {n: p.detach().cpu().clone()
+                 for n, p in tr.params.named_parameters()}
+        moments = {k: {n: t.cpu().clone() for n, t in tr.opt_state[k].items()}
+                   for k in ("mu", "nu")}
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(ck) for f in fs)
+        tr.run(CKPT_STEPS - CKPT_AT, log=lambda *_: None)
+        want = tr.history[CKPT_AT:]
+        del tr
+        tr2 = trainer(SEED + 1)
+        t0 = time.perf_counter()
+        check(tr2.maybe_restore() and tr2.step == CKPT_AT,
+              "restore from the checkpoint")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for n, p in tr2.params.named_parameters():
+            check(p.dtype == torch.bfloat16 and p.is_cuda
+                  and torch.equal(p.detach().cpu(), saved[n]),
+                  f"restored {n}")
+        for k in ("mu", "nu"):
+            for n, t in tr2.opt_state[k].items():
+                check(torch.equal(t.cpu(), moments[k][n]), f"restored {k} {n}")
+        check(int(tr2.opt_state["count"]) == CKPT_AT, "restored count")
+        got = tr2.run(CKPT_STEPS - CKPT_AT, log=lambda *_: None)
+    rel = float(np.max(np.abs(np.subtract(got, want)) / np.abs(want)))
+    check(rel <= REPLAY_RTOL, f"replayed losses {got} vs {want}")
+    log(f"  {cfg.name} whole, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"{CKPT_AT} steps in {run_s:.2f}s with a checkpoint at step "
+        f"{CKPT_AT} ({size / 2**30:.3f} GiB on disk, written to a temporary "
+        f"directory and removed); a fresh Trainer restored it in "
+        f"{restore_s:.2f}s: parameters, moments and count bitwise equal to "
+        f"those saved; steps {CKPT_AT}-{CKPT_STEPS - 1} replayed: losses "
+        f"{got} vs {want}, "
+        + ("bitwise" if got == want else f"max rel diff {rel:.3g} (<= "
+           f"{REPLAY_RTOL})"))
+    return {"replay_rel": rel, "bitwise": got == want, "ckpt_gib":
+            size / 2**30, "restore_s": restore_s}
+
+
+def phase_train_knnlm(dev, tally):
+    """Phase 20 (e): ``repro_torch.examples.knnlm_serve.main`` on the
+    card: 60 training steps, a datastore of 20 batches' hidden states and
+    the perplexities; its retrieval held against a direct query."""
+    from repro_torch.core import knnlm
+    from repro_torch.examples import knnlm_serve
+
+    seen = []
+    build = knnlm.build_datastore
+
+    def build_and_watch(*a, **kw):
+        store = build(*a, **kw)
+        query = store.index.query
+
+        def keep(*qa, **qkw):
+            res = query(*qa, **qkw)
+            seen.append((store, qa, qkw, res))
+            return res
+
+        store.index.query = keep
+        return store
+
+    knnlm.build_datastore = build_and_watch
+    try:
+        res, wall, counts = counted(
+            "knnlm_serve", lambda: knnlm_serve.main(["--device", "cuda"]),
+            tally, need=("pairwise_topk", "grid_round"))
+    finally:
+        knnlm.build_datastore = build
+    check(len(seen) == 1, f"{len(seen)} retrievals")
+    store, qa, qkw, retrieval = seen[0]
+    del store.index.query
+    direct = store.index.query(*qa, **qkw)
+    check(np.array_equal(retrieval.dists, direct.dists)
+          and np.array_equal(retrieval.idxs, direct.idxs),
+          "knnlm_serve retrieval vs a direct query")
+    check(res["knn"][0.25] < res["lm"],
+          f"kNN-LM {res['knn'][0.25]} not below LM-only {res['lm']}")
+    log(f"  knnlm_serve on the card: loss {res['loss']:.4f} after 60 steps; "
+        f"{len(store.targets)} entries; perplexity LM-only {res['lm']:.4f}, "
+        f"kNN-LM " + ", ".join(f"lam {k} {v:.4f}"
+                               for k, v in res["knn"].items())
+        + f"; {wall:.2f}s, launches {counts}; retrieval bitwise equal to a "
+        f"direct query")
+    return {"wall_s": wall, "lm": res["lm"], "knn": res["knn"]}
+
+
+def phase_train(dev, tally):
+    """Phase 20: training on the card (see the module docstring)."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    model, cfg, out["qwen"] = phase_train_qwen(dev)
+    secs["qwen"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["grads"] = phase_train_grads(dev, model, cfg, rng)
+    secs["grads"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["archs"] = phase_train_archs(dev)
+    secs["archs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["restart"] = phase_train_restart(dev)
+    secs["restart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["knnlm"] = phase_train_knnlm(dev, tally)
+    secs["knnlm"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2716,7 +3167,14 @@ def main() -> int:
     log(f"  phase 19 took {time.perf_counter() - t0:.1f}s; parts "
         f"qwen {lm_s['qwen_s']:.1f}s, kNN-LM {lm_s['store_s']:.1f}s, other "
         f"architectures {lm_s['archs_s']:.1f}s")
-    log(f"  phases 9-19 launches {tally}")
+    t0 = time.perf_counter()
+    log("phase 20: training: Qwen3-0.6B at full width and depth, float32 "
+        "gradients card vs CPU, the nine other architectures, a checkpoint "
+        "restart of SmolLM-135M, the kNN-LM example")
+    train_s = phase_train(dev, tally)
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f}s; parts "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in train_s["seconds"].items()))
+    log(f"  phases 9-20 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -2738,7 +3196,7 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
                         "phase 11", "phase 12", "phase 15", "phase 17",
-                        "phase 18", "phase 19"],
+                        "phase 18", "phase 19", "phase 20"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -2761,7 +3219,8 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
                         "phase 10", "phase 11", "phase 13", "phase 14",
-                        "phase 16", "phase 17", "phase 18", "phase 19"],
+                        "phase 16", "phase 17", "phase 18", "phase 19",
+                        "phase 20"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

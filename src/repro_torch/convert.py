@@ -2,11 +2,11 @@
 
 The port's state is the index — the hash grids and TrueKNN's radius
 lattice and warm-start values, and a kNN-LM datastore's projected keys,
-targets and PCA projection — and an LM's weights.  These functions build
-that state from plain numpy arrays and floats, whatever produced them
-(another process, a saved index, the JAX reference package), so two
-implementations can be fed the same grid, warm state, datastore or
-weights.
+targets and PCA projection — and an LM's weights and optimizer state.
+These functions build that state from plain numpy arrays and floats,
+whatever produced them (another process, a saved index, the JAX reference
+package), so two implementations can be fed the same grid, warm state,
+datastore, weights or optimizer state.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from ._device import resolve_device
 from .core.grid import Grid
 
 __all__ = ["grid_from_numpy", "trueknn_state_from_numpy", "TrueKNNState",
-           "datastore_from_reference", "lm_params_from_reference"]
+           "datastore_from_reference", "lm_named_leaves",
+           "lm_params_from_reference", "adamw_state_from_reference"]
 
 
 def grid_from_numpy(buckets, point_cells, origin, inv_cell, res, table_size,
@@ -117,20 +118,20 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def lm_params_from_reference(tree, cfg, device="cuda"):
-    """A port ``models.LM`` on ``device`` holding the reference's weights.
+def lm_named_leaves(tree, cfg) -> dict:
+    """The leaves of a reference LM pytree as ``{name: np.ndarray}``, keyed
+    by the port's ``LM.named_parameters()`` names.
 
-    ``tree`` is the reference's parameter pytree with numpy leaves:
-    ``embed``, ``final_norm``, ``unembed`` (unless tied) and ``layers`` =
+    ``tree`` has the reference's parameter layout: ``embed``,
+    ``final_norm``, ``unembed`` (unless tied) and ``layers`` =
     ``{"prefix": [..], "body": [..], "suffix": [..]}``, whose body entry j
     stacks the leaves of layers ``stack_plan(cfg)[1][j]`` along a leading
-    axis.  Each layer's leaves land in the parameters of the same names.
+    axis.  The body is unstacked into one entry per layer.  Any tree of
+    that layout maps: the weights, ``jax.grad``'s gradients, AdamW's
+    moments.
     """
-    from .models.model import LM
     from .models.transformer import stack_plan
 
-    dev = resolve_device(device)
-    model = LM(cfg, "meta")
     pre, scanned, suffix = stack_plan(cfg)
     layers = tree["layers"]
     per_layer = {i: layers["prefix"][n] for n, i in enumerate(pre)}
@@ -142,9 +143,22 @@ def lm_params_from_reference(tree, cfg, device="cuda"):
     flat = {}
     for key in ("embed", "final_norm", "unembed"):
         if key in tree:
-            flat[key] = tree[key]
+            flat[key] = np.asarray(tree[key])
     for i, leaves in per_layer.items():
         _flatten(leaves, f"layers.{i}", flat)
+    return flat
+
+
+def lm_params_from_reference(tree, cfg, device="cuda"):
+    """A port ``models.LM`` on ``device`` holding the reference's weights
+    (``tree``: the reference's parameter pytree with numpy leaves, mapped
+    by ``lm_named_leaves``).  Each layer's leaves land in the parameters
+    of the same names."""
+    from .models.model import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg, "meta")
+    flat = lm_named_leaves(tree, cfg)
     want = {name for name, _ in model.named_parameters()}
     if set(flat) != want:
         raise ValueError(f"reference leaves {sorted(set(flat) ^ want)} do "
@@ -162,6 +176,25 @@ def lm_params_from_reference(tree, cfg, device="cuda"):
     return model
 
 
+def adamw_state_from_reference(opt_state, cfg, device="cuda") -> dict:
+    """The port's AdamW state (``optim.adamw_init``'s layout) on ``device``
+    from the reference's ``{"mu": tree, "nu": tree, "count": int32}``: the
+    moment trees mapped by ``lm_named_leaves``, ``count`` an int32
+    scalar tensor."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        return {name: _tensor(arr).to(dev)
+                for name, arr in lm_named_leaves(tree, cfg).items()}
+
+    return {
+        "mu": moments(opt_state["mu"]),
+        "nu": moments(opt_state["nu"]),
+        "count": torch.tensor(int(np.asarray(opt_state["count"])),
+                              dtype=torch.int32, device=dev),
+    }
+
+
 def _index_tree(tree, i):
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
@@ -173,4 +206,4 @@ def _flatten(tree, prefix, out):
         if isinstance(v, dict):
             _flatten(v, f"{prefix}.{k}", out)
         else:
-            out[f"{prefix}.{k}"] = v
+            out[f"{prefix}.{k}"] = np.asarray(v)

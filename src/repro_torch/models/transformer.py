@@ -5,13 +5,15 @@ The reference stacks the body's parameters by period and runs them under
 one ``lax.scan``; the port keeps one ``Layer`` per layer in a flat list
 and runs the stacks as Python loops in layer order, which is the order
 the reference's prefix, scanned periods and suffix visit them
-(``stack_plan``).  ``scan_layers`` changes nothing here.
+(``stack_plan``).  ``scan_layers`` changes nothing here; ``remat``
+checkpoints each scanned period in the backward, as the reference does.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import mla, moe, rglru, ssm
@@ -171,12 +173,35 @@ def stack_plan(cfg: ModelConfig):
 
 
 def apply_stack(layers, x, cos, sin, cfg: ModelConfig):
-    """Full-sequence forward through all layers.  Returns (x, aux_sum)."""
+    """Full-sequence forward through all layers.  Returns (x, aux_sum).
+
+    With ``cfg.remat`` and autograd recording, each period of the scanned
+    body runs under ``torch.utils.checkpoint``, as the reference wraps its
+    ``_super_block`` in ``jax.checkpoint``: its activations are recomputed
+    in the backward instead of kept.  The prefix and suffix layers are
+    not checkpointed, as in the reference."""
+    kinds = cfg.layer_kinds
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, kind in zip(layers, cfg.layer_kinds):
-        x, aux = apply_layer(layer, x, cos, sin, cfg, kind)
-        aux_total = aux_total + aux
-    return x, aux_total
+
+    def run(ids, x, aux_total):
+        for i in ids:
+            x, aux = apply_layer(layers[i], x, cos, sin, cfg, kinds[i])
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    pre, scanned, suffix = stack_plan(cfg)
+    n_periods = len(scanned[0]) if scanned and scanned[0] else 0
+    periods = [[scanned[j][i] for j in range(cfg.period)]
+               for i in range(n_periods)]
+    remat = cfg.remat and torch.is_grad_enabled()
+    x, aux_total = run(pre, x, aux_total)
+    for ids in periods:
+        if remat:
+            x, aux_total = checkpoint(run, ids, x, aux_total,
+                                      use_reentrant=False)
+        else:
+            x, aux_total = run(ids, x, aux_total)
+    return run(suffix, x, aux_total)
 
 
 def prefill_stack(layers, caches, x, cos, sin, cfg: ModelConfig):

@@ -100,6 +100,22 @@ toks = SyntheticLMStream(DataConfig(64, 8, 2)).batch_at(0)["tokens"]
 assert toks.shape == (2, 8)
 repro_torch.launch.serve.main(["--mode", "lm", "--requests", "2",
                                "--max-new", "2", "--device", "cpu"])
+import repro_torch.optim
+import repro_torch.train
+import repro_torch.launch.train
+from repro_torch.examples import knnlm_serve, train_lm
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.train import TrainConfig, Trainer, make_train_step
+
+tcfg = TrainConfig(warmup_steps=1, total_steps=2)
+qcfg = smoke_config(get_config("qwen3-0.6b"))
+qm = init_params(qcfg, torch.Generator().manual_seed(0), device="cpu")
+tr = Trainer(qcfg, tcfg, qm, adamw_init(qm),
+             SyntheticLMStream(DataConfig(qcfg.vocab_size, 8, 2)),
+             make_train_step(qcfg, tcfg))
+assert len(tr.run(2, log=lambda *_: None)) == 2
+assert len(train_lm.main(["--preset", "smoke", "--steps", "2",
+                          "--device", "cpu"])) == 2
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
