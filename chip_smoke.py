@@ -164,10 +164,29 @@ comes out:
    ``repro_torch.examples.knnlm_serve.main(["--device", "cuda"])``: both
    kernels launched, kNN-LM at lambda 0.25 below the LM-only perplexity,
    its retrieval bitwise equal to a direct query;
+21. parallelism and the dry-run (``repro_torch.parallel``,
+   ``launch.dryrun``): (a) Qwen3-0.6B at full width and depth (bf16
+   params, f32 moments) through ``make_sharded_train_step`` on a (2, 2)
+   ("data", "model") mesh of the card, 5 steps at 8 x 1024: its first
+   loss against the one-device step's, the collective log equal to
+   ``step_collectives``, shard GiB, step p50 and peak memory; its float32
+   copy on 2 x 128, one step from the same state sharded and on one
+   device (loss rtol 1e-5, parameters rtol 1e-5 above 0.01 lr); (b) its
+   28 layers as a 4-stage pipeline of 7 over 4 microbatches of the
+   batch's embeddings, bitwise equal to the layers in order (ticks,
+   bubbles, ms); (c)
+   ``compressed_psum_mean`` over 4 data positions on 4 rows' gradients,
+   bitwise equal to the CPU's, its error against the exact mean; (d) the
+   dry-run's trueknn cell (2^20 uniform points a shard, 2^16 queries;
+   2^19 a shard for the grid engine, whose host probes bound the phase),
+   dense and grid, on 256 and 512 positions of the card, 4096 rows
+   against the brute backend, position (0, 15)'s ``pairwise_topk`` call
+   against the plain version; (e) ``launch.dryrun.main`` on meta for
+   qwen3-0.6b train_4k single and deepseek-v2-lite-16b decode_32k multi;
    then the kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-20) and read
+are zeroed just before each entry point (phases 4, 5 and 9-21) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -3054,6 +3073,482 @@ def phase_train(dev, tally):
     return out
 
 
+# -- phase 21: parallelism and the dry-run -----------------------------------
+
+
+SHARD_STEPS = 5  # phase 21 (a): sharded Qwen3-0.6B steps at 8 x 1024
+#: (a) the sharded run's first step: the end of train_cfg's warmup, so
+#: its update is a real one at the peak lr
+SHARD_START = 5
+#: (a) bf16, sharded (two data rows of 4 x 1024) vs one device (8 x
+#: 1024), the first two losses: before any update and after one real
+#: update.  The same per-token math, products of other batch sizes
+#: (cuBLAS may pick other kernels, so other bf16 roundings), the rows'
+#: losses weighted by their token counts; AdamW's first update from zero
+#: moments is lr x sign(g), so only elements whose gradient sign the
+#: roundings flip move apart.  A step that lost a row's gradient would
+#: move the second loss by far more.
+SHARD_BF16_LOSS_RTOL = 1e-3
+#: (a) float32, sharded vs one device, one step from one state, repeated
+#: from SHARD_F32_READINGS states: loss and gradient norm rtol 1e-5,
+#: parameters rtol 1e-5 above a floor of SHARD_F32_LR_FLOOR x lr.  AdamW
+#: divides each gradient element by its running RMS, so where an
+#: element's moment and gradient are both near zero the rows' float32
+#: rounding moves its update.  From this phase's three states an H100
+#: read 2.87e-3, 8.8e-4 and 2.8e-4 lr (repeat runs read the same; the
+#: CPU's smoke model, tests/test_torch_parallel.py: 7e-4 lr), so the
+#: floor is 1.7x the highest reading.  Then one more step each way from
+#: its own state: the loss after a real sharded update, rtol 1e-5.
+SHARD_F32_RTOL = 1e-5
+SHARD_F32_LR_FLOOR = 5e-3
+SHARD_F32_READINGS = 3
+N_STAGES, N_MICRO = 4, 4  # phase 21 (b): 28 layers in 4 stages of 7
+CMEAN_ROWS = 4  # phase 21 (c): data positions of the compressed mean
+CMEAN_REL_TOL = 0.05  # tests/test_distributed.py's bound on its error
+KNN_ROWS = 4096  # phase 21 (d): rows held against the brute backend
+#: phase 21 (d): the grid engine's points a shard, cut from the cell's
+#: 2^20: its 16 host grid probes of 2^20 points took 29-51 s a mesh in
+#: two runs, most of phase 21's 100-124 s; cut to keep the phase inside
+#: its ~150 s budget on a slower host
+GRID_CELL_POINTS = 1 << 19
+
+
+def cosine_lr(tcfg, step):
+    from repro_torch.optim import cosine_schedule
+
+    return cosine_schedule(step, peak_lr=tcfg.peak_lr,
+                           warmup_steps=tcfg.warmup_steps,
+                           total_steps=tcfg.total_steps)
+
+
+def sharded_setup(cfg, named, opt, mesh, batch):
+    """Shardings and a sharded step of ``named`` / ``opt`` on ``mesh``."""
+    from repro_torch.parallel import (batch_shardings, param_shardings,
+                                      shard_tree)
+    from repro_torch.train.trainer import make_sharded_train_step
+
+    p_sh = param_shardings(named, cfg, mesh)
+    o_sh = param_shardings(opt, cfg, mesh, role="opt")
+    b_sh = batch_shardings(batch, cfg, mesh)
+    step = make_sharded_train_step(cfg, train_cfg(SHARD_STEPS + 10), mesh,
+                                   p_sh, o_sh, b_sh)
+    return (p_sh, o_sh, b_sh), step, shard_tree(named, p_sh), shard_tree(
+        opt, o_sh)
+
+
+def phase_shard_qwen(dev):
+    """Phase 21 (a): Qwen3-0.6B at full width and depth on a (2, 2)
+    ("data", "model") mesh of the card: 5 sharded steps at 8 x 1024 from
+    the end of the warmup, the first two losses (before and after one
+    real update) against the one-device step's, then the float32 copy on
+    2 x 128: one step from one state both ways, from three states, and a
+    step after a real sharded update."""
+    import torch
+
+    from repro_torch import DeviceMesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch import analysis
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import gather_tree
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    mesh = DeviceMesh([[dev] * 2] * 2, ("data", "model"))
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in stream.batch_at(s).items()}
+               for s in range(SHARD_STEPS)]
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    named = {k: v.detach() for k, v in model.named_parameters()}
+    opt = adamw_init(model)
+    shs, step, params, state = sharded_setup(cfg, named, opt, mesh,
+                                             batches[0])
+    shard_gib = sum(t.numel() * t.element_size()
+                    for t in params[(0, 0)].values()) / 2**30
+    moment_gib = sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                     for t in state[(0, 0)][k].values()) / 2**30
+    # the one-device step on the same weights and batches: the loss
+    # before any update, then after one real update
+    one = make_train_step(cfg, train_cfg(SHARD_STEPS + 10))
+    want = []
+    for s in range(2):
+        model, opt, m1 = one(model, opt, SHARD_START + s, batches[s])
+        want.append(m1["loss"])
+    del model, opt, named, m1
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for s, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, SHARD_START + s, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        check(m["bad_step"] == 0, f"sharded step {s} was bad")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(np.isfinite(losses).all(), f"sharded losses {losses}")
+    gaps = [abs(g - w) / abs(w) for g, w in zip(losses, want)]
+    check(max(gaps) <= SHARD_BF16_LOSS_RTOL,
+          f"sharded losses {losses[:2]} vs one device {want}")
+    got = analysis.collective_bytes(m["collectives"])
+    want_log = analysis.collective_bytes(analysis.step_collectives(
+        *shs, "train"))
+    check(got == want_log, f"collective log {got} != closed form {want_log}")
+    p50 = pct(times[1:], 50)
+    log(f"  bf16 on {mesh}: {SHARD_STEPS} steps at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} (2 data rows of {TRAIN_BATCH // 2}) from step "
+        f"{SHARD_START} (peak lr): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; the first two vs one "
+        f"device {want[0]:.6f}, {want[1]:.6f} (before and after one "
+        f"update): relative gaps {gaps[0]:.3g}, {gaps[1]:.3g} (<= "
+        f"{SHARD_BF16_LOSS_RTOL}); step ms p50 {p50:.2f} (steps 1-"
+        f"{SHARD_STEPS - 1}; first {times[0] * 1e3:.1f}); a position holds "
+        f"{shard_gib:.4f} GiB of bf16 parameter slices and {moment_gib:.4f}"
+        f" GiB of f32 moments; peak {peak:.2f} GiB; collectives a step "
+        f"{json.dumps(got['bytes'])} ({got['total_bytes']} B, the log "
+        f"equal to step_collectives)")
+    out = {"losses": losses, "first_gaps": gaps, "step_p50_ms": p50,
+           "shard_gib": shard_gib, "moment_gib": moment_gib,
+           "peak_gib": peak, "collective_bytes": got["total_bytes"]}
+    full = gather_tree(params, shs[0])
+    del params, state
+
+    # float32 copy on 2 x 128: one warm step on one device, then from each
+    # of SHARD_F32_READINGS states one step on one device and sharded
+    rng = np.random.default_rng(SEED)
+    seq = rng.integers(0, cfg.vocab_size, (GRAD_ROWS, LM_PROMPT + 1))
+    b32 = {"tokens": torch.as_tensor(seq[:, :-1], device=dev),
+           "labels": torch.as_tensor(seq[:, 1:], device=dev)}
+    src = LM(cfg, "meta").to_empty(device=dev)
+    with torch.no_grad():
+        for k, p in src.named_parameters():
+            p.copy_(full[k])
+    del full
+    m32, cfg32 = f32_copy(src, cfg, dev)
+    del src
+    tcfg = train_cfg(SHARD_STEPS + 10)
+    one = make_train_step(cfg32, tcfg)
+    opt32 = adamw_init(m32)
+    m32, opt32, _ = one(m32, opt32, 5, b32)
+    readings, loss_rels, norm_rels, beyond, total = [], [], [], 0, 0
+    for r in range(SHARD_F32_READINGS):
+        s = 6 + r
+        named32 = {k: v.detach().clone() for k, v in m32.named_parameters()}
+        opt_copy = {"mu": {k: v.clone() for k, v in opt32["mu"].items()},
+                    "nu": {k: v.clone() for k, v in opt32["nu"].items()},
+                    "count": opt32["count"].clone()}
+        shs32, step32, p32, o32 = sharded_setup(cfg32, named32, opt_copy,
+                                                mesh, b32)
+        del named32, opt_copy
+        m32, opt32, r1 = one(m32, opt32, s, b32)
+        p32, o32, r2 = step32(p32, o32, s, b32)
+        loss_rels.append(abs(r2["loss"] - r1["loss"]) / abs(r1["loss"]))
+        norm_rels.append(float((r2["grad_norm"] - r1["grad_norm"]).abs()
+                               / r1["grad_norm"]))
+        lr = float(cosine_lr(tcfg, s))
+        got32 = gather_tree(p32, shs32[0])
+        worst = 0.0
+        for k, p in m32.named_parameters():
+            d = (got32[k] - p.detach()).abs()
+            worst = max(worst, float(d.max()))
+            if r == 0:
+                beyond += int((d > SHARD_F32_RTOL * p.detach().abs()).sum())
+                total += p.numel()
+            fail = ~(d <= SHARD_F32_RTOL * p.detach().abs()
+                     + SHARD_F32_LR_FLOOR * lr)
+            check(not bool(fail.any()),
+                  f"f32 sharded params {k} from state {r}: max |diff| "
+                  f"{float(d.max()):.3g} ({float(d.max()) / lr:.3g} lr); "
+                  f"readings so far {readings}")
+        readings.append(worst / lr)
+        del got32
+    # one more step each way, each from its own state: the loss after the
+    # sharded step's own update
+    s = 6 + SHARD_F32_READINGS
+    _, _, r1 = one(m32, opt32, s, b32)
+    _, _, r2 = step32(p32, o32, s, b32)
+    after_rel = abs(r2["loss"] - r1["loss"]) / abs(r1["loss"])
+    check(max(loss_rels + norm_rels + [after_rel]) <= SHARD_F32_RTOL,
+          f"f32 sharded vs one device: loss {loss_rels}, grad norm "
+          f"{norm_rels}, loss after its own update {after_rel}")
+    log(f"  float32 copy on {GRAD_ROWS} x {LM_PROMPT}, one step from one "
+        f"state (after a warm one-device step), from "
+        f"{SHARD_F32_READINGS} states: loss relative "
+        f"{', '.join(f'{x:.3g}' for x in loss_rels)}, grad norm relative "
+        f"{', '.join(f'{x:.3g}' for x in norm_rels)} (<= {SHARD_F32_RTOL}); "
+        f"parameters max |diff| "
+        f"{', '.join(f'{x:.3g}' for x in readings)} lr (floor "
+        f"{SHARD_F32_LR_FLOOR} lr), state 0: {beyond} of {total} beyond "
+        f"rtol {SHARD_F32_RTOL} alone; the loss after a sharded update vs "
+        f"one device's: relative {after_rel:.3g} (<= {SHARD_F32_RTOL})")
+    out.update(f32_loss_rel=loss_rels, f32_norm_rel=norm_rels,
+               f32_param_lr=readings, f32_beyond_rtol=beyond,
+               f32_after_rel=after_rel)
+    return out
+
+
+def phase_pipeline(dev, cfg, model, batch):
+    """Phase 21 (b): Qwen3-0.6B's 28 layers as 4 stages of 7 on a
+    4-position ("stage",) mesh, 4 microbatches of the 8 x 1024 batch's
+    embeddings, bitwise against the layers applied in order."""
+    import torch
+
+    from repro_torch import DeviceMesh
+    from repro_torch.models.model import _embed, _rope
+    from repro_torch.models.transformer import apply_layer
+    from repro_torch.parallel import pipeline_apply
+
+    per = cfg.n_layers // N_STAGES
+    with torch.no_grad():
+        x = _embed(model, cfg, batch["tokens"])
+        cos, sin = _rope(cfg, torch.arange(x.shape[1], device=dev))
+        kinds = cfg.layer_kinds
+
+        def stage_fn(ids, h):
+            for i in ids:
+                h, _ = apply_layer(model.layers[i], h, cos, sin, cfg,
+                                   kinds[i])
+            return h
+
+        stages = [list(range(s * per, (s + 1) * per))
+                  for s in range(N_STAGES)]
+        xs = x.reshape(N_MICRO, x.shape[0] // N_MICRO, *x.shape[1:])
+        fn = pipeline_apply(DeviceMesh([dev] * N_STAGES, ("stage",)),
+                            stage_fn, N_MICRO)
+        pipe_ms = median_ms(lambda: fn(stages, xs), 3,
+                            torch.cuda.synchronize)
+        got = fn(stages, xs)
+        want = torch.stack([stage_fn(range(cfg.n_layers), xs[m])
+                            for m in range(N_MICRO)])
+        seq_ms = median_ms(lambda: [stage_fn(range(cfg.n_layers), xs[m])
+                                    for m in range(N_MICRO)], 3,
+                           torch.cuda.synchronize)
+    check(torch.equal(got, want), "pipeline output differs from the layers "
+          "applied in order")
+    sch = fn.schedule
+    log(f"  {N_STAGES} stages x {per} layers, {N_MICRO} microbatches of "
+        f"{tuple(xs.shape[1:])}: {sch['ticks']} ticks, {sch['busy']} busy "
+        f"and {sch['bubbles']} bubble stage-ticks (utilization "
+        f"{N_MICRO / sch['ticks']:.3f} per stage); bitwise equal to the "
+        f"layers applied in order; {pipe_ms:.2f} ms (sequential "
+        f"{seq_ms:.2f} ms; one card runs every stage, so no overlap)")
+    return {"ticks": sch["ticks"], "bubbles": sch["bubbles"],
+            "pipe_ms": pipe_ms, "seq_ms": seq_ms}
+
+
+def phase_cmean(dev, cfg, model, batch):
+    """Phase 21 (c): ``compressed_psum_mean`` over 4 data positions of the
+    card on 4 rows' gradients (each 2 x 1024 of (a)'s batch; the leaves of
+    layer 0 and the final norm), bitwise against the same formula on the
+    CPU, and its error against the exact mean."""
+    import torch
+
+    from repro_torch import DeviceMesh
+    from repro_torch.launch import analysis
+    from repro_torch.models import loss_fn
+    from repro_torch.parallel import tree_compressed_psum_mean
+
+    keep = [k for k, _ in model.named_parameters()
+            if k.startswith("layers.0.") or k == "final_norm"]
+    rows = TRAIN_BATCH // CMEAN_ROWS
+    trees = {}
+    for r in range(CMEAN_ROWS):
+        part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        loss, _ = loss_fn(model, cfg, part)
+        loss.backward()
+        grads = dict(model.named_parameters())
+        trees[(r,)] = {k: grads[k].grad.float() for k in keep}
+        model.zero_grad(set_to_none=True)
+    log_ = []
+    t0 = time.perf_counter()
+    got = tree_compressed_psum_mean(
+        trees, DeviceMesh([dev] * CMEAN_ROWS, ("data",)), "data", log=log_)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = tree_compressed_psum_mean(
+        {p: {k: v.cpu() for k, v in t.items()} for p, t in trees.items()},
+        DeviceMesh(["cpu"] * CMEAN_ROWS, ("data",)), "data")
+    worst = 0.0
+    for k in keep:
+        for p in trees:
+            check(torch.equal(got[p][k].cpu(), cpu[p][k]),
+                  f"compressed mean {k} at {p}: card differs from the CPU")
+        exact = torch.stack([trees[p][k] for p in trees]).mean(0)
+        err = float((got[(0,)][k] - exact).abs().max()) / max(
+            float(exact.abs().max()), 1e-30)
+        worst = max(worst, err)
+    check(worst < CMEAN_REL_TOL, f"compressed mean error {worst}")
+    n = sum(trees[(0,)][k].numel() for k in keep)
+    sent = analysis.collective_bytes(log_)["total_bytes"]
+    log(f"  {len(keep)} leaves ({n} values) over {CMEAN_ROWS} positions: "
+        f"bitwise equal to the CPU's; max |mean - exact| / max |exact| "
+        f"{worst:.4g} (< {CMEAN_REL_TOL}); {card_s:.3f} s; logged "
+        f"{sent} B of all-reduce a position (int32 sums; int8 values)")
+    return {"rel_err": worst, "card_s": card_s}
+
+
+def phase_knn_cell(dev, tally):
+    """Phase 21 (d): the dry-run's trueknn cell on the card, dense and grid
+    engines on 256 and 512 positions, 4096 sampled rows against the brute
+    backend, and one position's ``pairwise_topk`` call against its plain
+    version."""
+    import torch
+
+    import dataclasses
+
+    from repro_torch import KnnSpec, build_index
+    from repro_torch.configs.trueknn import CONFIG
+    from repro_torch.kernels.ops import topk_engine
+    from repro_torch.kernels.ref import pairwise_topk_ref
+    from repro_torch.launch import dryrun
+
+    out, err = {}, 0.0
+    rng = np.random.default_rng(SEED)
+    grid_cfg = dataclasses.replace(CONFIG, n_points=GRID_CELL_POINTS)
+    log(f"  (the grid engine's cell cut to {GRID_CELL_POINTS} points a shard "
+        f"from {CONFIG.n_points}: its host grid probes)")
+    for engine, need, kcfg in (("dense", "pairwise_topk", CONFIG),
+                               ("grid", "grid_round", grid_cfg)):
+        for multi in (False, True):
+            (rec, pts, qs, ans), wall, counts = counted(
+                f"trueknn cell {engine}",
+                lambda: dryrun.lower_trueknn_cell(multi, engine, device=dev,
+                                                kcfg=kcfg),
+                tally, need=(need,))
+            check(rec["launches"][need] == rec["n_chips"],
+                  f"{engine}: {rec['launches']} launches on "
+                  f"{rec['n_chips']} positions")
+            rows = np.sort(rng.choice(qs.shape[0], KNN_ROWS, replace=False))
+            d2, idx, cnt = (t.cpu().numpy() for t in ans)
+            dist = np.sqrt(np.maximum(d2[rows], 0))
+            pts_t = torch.as_tensor(pts, device=dev)
+            q_t = torch.as_tensor(qs[rows], device=dev)
+            if engine == "dense":
+                want = build_index(pts, backend="brute", device=dev).query(
+                    qs[rows], KnnSpec(8))
+                same = (np.array_equal(dist, want.dists)
+                        and np.array_equal(idx[rows], want.idxs))
+                check(same, f"dense cell on {rec['n_chips']} vs brute")
+                extra = "distances and indices bitwise equal to brute's"
+            else:
+                r2 = float(np.float32(rec["radius"]) ** 2)
+                qid = torch.full((KNN_ROWS,), -1, dtype=torch.int32,
+                                 device=dev)
+                bd, bi, bc = (t.cpu().numpy() for t in topk_engine(
+                    q_t, qid, pts_t, r2, k=8))
+                check(np.array_equal(cnt[rows], bc),
+                      f"grid cell on {rec['n_chips']}: found != ball counts")
+                m = np.minimum(cnt[rows], 8)
+                cols = np.arange(8)[None, :] < m[:, None]
+                check(np.array_equal(d2[rows][cols], bd[cols]),
+                      f"grid cell on {rec['n_chips']}: in-radius distances")
+                gi = np.where(cols, idx[rows], -1)
+                wi = np.where(cols, bi, -1)
+                check(np.array_equal(np.sort(gi, 1), np.sort(wi, 1)),
+                      f"grid cell on {rec['n_chips']}: in-radius indices")
+                extra = (f"radius {rec['radius']:.6g} (table {rec['table']}, "
+                         f"cap {rec['cap']}), {float((cnt >= 8).mean()):.3f}"
+                         f" of rows resolved; found and the in-radius "
+                         f"distances bitwise equal to brute's, indices up "
+                         f"to order")
+            log(f"  {engine} on {rec['n_chips']} positions ({rec['cell']}): "
+                f"setup {rec['setup_s']:.3f} s, first call "
+                f"{rec['first_s']:.3f} s, warm {rec['warm_s']:.3f} s, "
+                f"launches {rec['launches']}; {KNN_ROWS} rows: {extra}")
+            out[f"{engine}_{rec['n_chips']}"] = {
+                k: rec[k] for k in ("setup_s", "first_s", "warm_s")}
+            if engine == "dense" and not multi:
+                # position (0, 15)'s call: query slice 0, shard 15
+                nl = pts.shape[0] // 16
+                q_l = torch.as_tensor(qs[:qs.shape[0] // 16], device=dev)
+                p_l = pts_t[15 * nl:16 * nl].contiguous()
+                qid_l = torch.full((q_l.shape[0],), -1 - 15 * nl,
+                                   dtype=torch.int32, device=dev)
+                got = topk_engine(q_l, qid_l, p_l, math.inf, k=8)
+                ref = pairwise_topk_ref(q_l, p_l, 8, radius2=math.inf,
+                                        query_ids=qid_l)
+                err = compare_topk("position (0, 15)", got, ref, q_l, p_l,
+                                   "l2", True)
+                log(f"  position (0, 15)'s pairwise_topk call (Q="
+                    f"{q_l.shape[0]} N={nl} k=8) bitwise equal to the plain "
+                    f"version")
+            del pts_t, ans
+            torch.cuda.empty_cache()
+    return out, err
+
+
+def phase_dryrun_cli():
+    """Phase 21 (e): ``launch.dryrun.main`` in process on meta for two
+    cells."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        for arch, cell, mesh in (("qwen3-0.6b", "train_4k", "single"),
+                                 ("deepseek-v2-lite-16b", "decode_32k",
+                                  "multi")):
+            t0 = time.perf_counter()
+            (rec,) = dryrun.main(["--arch", arch, "--cell", cell, "--mesh",
+                                  mesh, "--out", d])
+            check(rec["status"] == "ok", f"dry-run {arch} {cell}: {rec}")
+            r = rec["roofline"]
+            coll = (f"{r['collective_s']:.4g} s" if rec["collectives"]
+                    else f"none ({rec['collectives_note']})")
+            log(f"  {arch} {cell} {mesh}: {rec['n_chips']} positions, "
+                f"{rec['memory']['argument_size_in_bytes'] / 2**30:.4f} GiB "
+                f"of arguments a position, {rec['cost_flops']:.4g} product "
+                f"FLOP a position, roofline compute {r['compute_s']:.4g} s "
+                f"memory {r['memory_s']:.4g} s collective {coll} "
+                f"({r['dominant']}; analytic on H100 constants); "
+                f"{time.perf_counter() - t0:.2f} s")
+            out[f"{arch}/{cell}/{mesh}"] = r["dominant"]
+    return out
+
+
+def phase_parallel(dev, tally):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import init_params
+
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    out["sharded"] = phase_shard_qwen(dev)
+    secs["sharded"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLMStream(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, seed=SEED)).batch_at(0).items()}
+    t0 = time.perf_counter()
+    out["pipeline"] = phase_pipeline(dev, cfg, model, batch)
+    secs["pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cmean"] = phase_cmean(dev, cfg, model, batch)
+    secs["cmean"] = time.perf_counter() - t0
+    del model, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["knn"], out["topk_err"] = phase_knn_cell(dev, tally)
+    secs["knn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = phase_dryrun_cli()
+    secs["dryrun"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3174,7 +3669,14 @@ def main() -> int:
     train_s = phase_train(dev, tally)
     log(f"  phase 20 took {time.perf_counter() - t0:.1f}s; parts "
         + ", ".join(f"{k} {v:.1f}s" for k, v in train_s["seconds"].items()))
-    log(f"  phases 9-20 launches {tally}")
+    t0 = time.perf_counter()
+    log("phase 21: parallelism and the dry-run: the sharded Qwen3-0.6B step "
+        "on a (2, 2) mesh, the pipeline, the compressed mean, the trueknn "
+        "cell on 256 and 512 positions, launch.dryrun on meta")
+    par = phase_parallel(dev, tally)
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f}s; parts "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in par["seconds"].items()))
+    log(f"  phases 9-21 launches {tally}")
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -3188,7 +3690,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/pairwise_topk.py:181",
             "launches": main_counts["pairwise_topk"]
             + range_counts["pairwise_topk"] + tally["pairwise_topk"],
-            "max_abs_err": max(pw_err, range_err, placed_err),
+            "max_abs_err": max(pw_err, range_err, placed_err,
+                               par["topk_err"]),
             "ms": t_k,
             "plain_ms": t_p,
             "bound_ms": pw_b[0],
@@ -3196,7 +3699,7 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
                         "phase 11", "phase 12", "phase 15", "phase 17",
-                        "phase 18", "phase 19", "phase 20"],
+                        "phase 18", "phase 19", "phase 20", "phase 21"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -3220,7 +3723,7 @@ def main() -> int:
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
                         "phase 10", "phase 11", "phase 13", "phase 14",
                         "phase 16", "phase 17", "phase 18", "phase 19",
-                        "phase 20"],
+                        "phase 20", "phase 21"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

@@ -22,7 +22,8 @@ from .core.grid import Grid
 
 __all__ = ["grid_from_numpy", "trueknn_state_from_numpy", "TrueKNNState",
            "datastore_from_reference", "lm_named_leaves",
-           "lm_params_from_reference", "adamw_state_from_reference"]
+           "lm_params_from_reference", "adamw_state_from_reference",
+           "shardings_from_reference"]
 
 
 def grid_from_numpy(buckets, point_cells, origin, inv_cell, res, table_size,
@@ -130,6 +131,32 @@ def lm_named_leaves(tree, cfg) -> dict:
     that layout maps: the weights, ``jax.grad``'s gradients, AdamW's
     moments.
     """
+    return {k: np.asarray(v)
+            for k, v in _named_layers(tree, cfg, lambda a, i: a[i]).items()}
+
+
+def shardings_from_reference(tree, cfg) -> dict:
+    """The ``PartitionSpec`` of every leaf of a reference tree of
+    ``NamedSharding``s as ``{name: parallel.PartitionSpec}``, keyed by the
+    port's names: the parameter layout (``lm_named_leaves``'s; names as
+    ``LM.named_parameters()``), or the decode caches' ``{"prefix",
+    "body", "suffix"}`` layout (names ``layers.<i>.<key>``, as
+    ``parallel.cache_shardings``' list flattens).  A body leaf's spec
+    loses its leading entry, the stacked layer dim's ``None``."""
+    from .parallel.sharding import PartitionSpec
+
+    if "layers" not in tree:
+        tree = {"layers": tree}
+    flat = _named_layers(tree, cfg,
+                         lambda sh, i: PartitionSpec(*tuple(sh.spec)[1:]))
+    return {k: v if isinstance(v, PartitionSpec) else PartitionSpec(*v.spec)
+            for k, v in flat.items()}
+
+
+def _named_layers(tree, cfg, take) -> dict:
+    """``{port name: leaf}`` of a reference tree of the parameter layout;
+    ``take(leaf, period)`` picks one layer's leaf from a stacked body
+    leaf."""
     from .models.transformer import stack_plan
 
     pre, scanned, suffix = stack_plan(cfg)
@@ -137,15 +164,15 @@ def lm_named_leaves(tree, cfg) -> dict:
     per_layer = {i: layers["prefix"][n] for n, i in enumerate(pre)}
     for j, ids in enumerate(scanned):
         for period, i in enumerate(ids):
-            per_layer[i] = _index_tree(layers["body"][j], period)
+            per_layer[i] = _index_tree(layers["body"][j], period, take)
     per_layer.update({i: layers["suffix"][n] for n, i in enumerate(suffix)})
 
     flat = {}
     for key in ("embed", "final_norm", "unembed"):
         if key in tree:
-            flat[key] = np.asarray(tree[key])
-    for i, leaves in per_layer.items():
-        _flatten(leaves, f"layers.{i}", flat)
+            flat[key] = tree[key]
+    for i in sorted(per_layer):
+        _flatten(per_layer[i], f"layers.{i}", flat)
     return flat
 
 
@@ -195,10 +222,10 @@ def adamw_state_from_reference(opt_state, cfg, device="cuda") -> dict:
     }
 
 
-def _index_tree(tree, i):
+def _index_tree(tree, i, take):
     if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _index_tree(v, i, take) for k, v in tree.items()}
+    return take(tree, i)
 
 
 def _flatten(tree, prefix, out):
@@ -206,4 +233,4 @@ def _flatten(tree, prefix, out):
         if isinstance(v, dict):
             _flatten(v, f"{prefix}.{k}", out)
         else:
-            out[f"{prefix}.{k}"] = np.asarray(v)
+            out[f"{prefix}.{k}"] = v

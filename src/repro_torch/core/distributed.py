@@ -68,7 +68,8 @@ class DeviceMesh:
     strings such as ``"cuda"`` / ``"cpu"``) whose number of dimensions is
     ``len(axis_names)``.  A device may appear at several positions.  Every
     device is validated by ``resolve_device`` (so ``cuda`` needs a card),
-    and all must be of one type.
+    except ``meta``, which the dry-run's production meshes hold (shapes
+    and shardings without storage); all must be of one type.
     """
 
     def __init__(self, devices, axis_names=("model",)):
@@ -83,7 +84,8 @@ class DeviceMesh:
             raise ValueError(f"bad mesh: axes {axis_names}, {arr.size} devices")
         self.devices = np.empty(arr.shape, dtype=object)
         for pos in np.ndindex(arr.shape):
-            self.devices[pos] = resolve_device(arr[pos])
+            dev = torch.device(arr[pos])
+            self.devices[pos] = dev if dev.type == "meta" else resolve_device(dev)
         types = {d.type for d in self.devices.flat}
         if len(types) != 1:
             raise ValueError(f"a mesh holds one device type, got {types}")

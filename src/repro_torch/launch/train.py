@@ -5,8 +5,11 @@ default) or on the CPU (``--device cpu``).
         --steps 300 --batch 8 --seq 256 --preset small --ckpt /tmp/run1
 
 Fault tolerance: resumes from the newest checkpoint in --ckpt
-automatically; SIGTERM checkpoints before exit (preemption-safe).  One
-process on one device: ``--mesh host`` only.
+automatically; SIGTERM checkpoints before exit (preemption-safe).
+``--mesh host`` trains on one device; ``--mesh prod`` / ``prod-multi``
+shard the parameters, the moments and the batch over the 16x16 /
+2x16x16 production mesh of the visible cards (``make_sharded_train_step``;
+fewer cards raise the mesh's ``ValueError``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ from ..configs import get_config, smoke_config
 from ..data import DataConfig, SyntheticLMStream
 from ..models import init_params
 from ..optim import adamw_init
+from ..parallel import batch_shardings, param_shardings, shard_tree
 from ..train import TrainConfig, Trainer, make_train_step
+from ..train.trainer import make_sharded_train_step
+from .mesh import make_production_mesh
 
 
 def build(preset: str, arch: str):
@@ -63,10 +69,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the generator the weights are drawn from")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains in one process on one "
-            "device; sharded meshes are ROADMAP queue 1 item 16b")
+        mesh = make_production_mesh(multi_pod=args.mesh == "prod-multi")
 
     dev = resolve_device(args.device)
     cfg = build(args.preset, args.arch)
@@ -89,7 +94,17 @@ def main(argv=None):
             vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch
         )
     )
-    tr = Trainer(cfg, tcfg, model, opt, stream, make_train_step(cfg, tcfg))
+    if mesh is None:
+        tr = Trainer(cfg, tcfg, model, opt, stream, make_train_step(cfg, tcfg))
+    else:
+        named = {k: v.detach() for k, v in model.named_parameters()}
+        p_sh = param_shardings(named, cfg, mesh)
+        o_sh = param_shardings(opt, cfg, mesh, role="opt")
+        b_sh = batch_shardings(stream.batch_at(0), cfg, mesh)
+        step = make_sharded_train_step(cfg, tcfg, mesh, p_sh, o_sh, b_sh)
+        tr = Trainer(cfg, tcfg, shard_tree(named, p_sh), shard_tree(opt, o_sh),
+                     stream, step, shardings={"params": p_sh, "opt": o_sh})
+        del model, opt, named
     prev = tr.install_preemption_hook()
     try:
         if tr.maybe_restore():

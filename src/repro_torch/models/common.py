@@ -80,9 +80,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     # The reference's compile-time and sharding knobs.  The port accepts
     # them so a config carries across unchanged; its layer stack is a
-    # Python loop either way (scan_layers, scan_loss) and it has no mesh
-    # (pure_dp, zero1).  remat checkpoints each scanned period of the
-    # layer stack in the backward (transformer.apply_stack).
+    # Python loop either way (scan_layers, scan_loss).  pure_dp and zero1
+    # steer the sharding rules (parallel/sharding.py); remat checkpoints
+    # each scanned period of the layer stack in the backward
+    # (transformer.apply_stack).
     scan_layers: bool = True
     scan_loss: bool = True
     pure_dp: bool = False

@@ -80,16 +80,20 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     max_grad_norm: float = 1.0,
+    grad_norm=None,
 ):
     """One AdamW step.  ``params`` (an ``nn.Module`` or ``{name: tensor}``)
     and ``state``'s moments and count are updated in place; ``grads`` is
     ``{name: tensor}``.  Returns (params, state, {"grad_norm": ...}).
+    ``grad_norm``, when given, is the global norm to clip by in place of
+    ``grads``' own: a sharded step updates one position's slices of the
+    tensors at a time, clipped by the whole gradient's norm.
 
     The clipped f32 gradient of each tensor is formed just before its
     update, so no f32 copy of every gradient is held at once."""
     named = _named(params)
     grads = _named(grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, max_grad_norm)
     count = state["count"] + 1
     c1 = 1.0 - b1 ** count.float()

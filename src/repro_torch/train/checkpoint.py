@@ -111,12 +111,20 @@ def _restore(tree, prefix, load, device):
     return load(_SEP.join(prefix), tree, device)
 
 
-def restore_checkpoint(directory, step: int, like: dict, *, device=None):
+def restore_checkpoint(directory, step: int, like: dict, *, device=None,
+                       shardings=None):
     """Restore into the structure of ``like`` (the same layout of tensors,
     dicts and modules).  Each leaf takes the dtype of ``like``'s and lands
     on ``device``, or on the device of ``like``'s tensor when None.  An
     ``nn.Module`` in ``like`` is loaded in place and returned.  Returns
-    (state, manifest)."""
+    (state, manifest).
+
+    ``shardings`` (``{key: tree of NamedSharding}`` for some of ``like``'s
+    top-level keys) re-places those entries onto the current mesh: each
+    becomes ``parallel.shard_tree``'s ``{position: slices}``, whatever
+    mesh the checkpoint was saved from (the elastic restore).  Their
+    leaves are loaded on the CPU first (``like`` may hold meta tensors
+    there)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -137,5 +145,13 @@ def restore_checkpoint(directory, step: int, like: dict, *, device=None):
             return t.to(device=proto.device if dev is None else dev,
                         dtype=proto.dtype)
 
-        state = _restore(like, (), load, device)
+        shardings = shardings or {}
+        state = {k: _restore(v, (str(k),), load,
+                             torch.device("cpu") if k in shardings else device)
+                 for k, v in like.items()}
+    if shardings:
+        from ..parallel.sharding import shard_tree
+
+        state.update({k: shard_tree(state[k], sh)
+                      for k, sh in shardings.items()})
     return state, manifest

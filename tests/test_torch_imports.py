@@ -116,6 +116,21 @@ tr = Trainer(qcfg, tcfg, qm, adamw_init(qm),
 assert len(tr.run(2, log=lambda *_: None)) == 2
 assert len(train_lm.main(["--preset", "smoke", "--steps", "2",
                           "--device", "cpu"])) == 2
+import repro_torch.parallel
+import repro_torch.launch.mesh
+import repro_torch.launch.shapes
+import repro_torch.launch.analysis
+import repro_torch.launch.dryrun
+from repro_torch.parallel import (compressed_psum_mean, param_shardings,
+                                  pipeline_apply, shard_tree)
+from repro_torch.launch import dryrun
+
+rec = dryrun.lower_cell("smollm-135m", "decode_32k", False)
+assert rec["status"] == "ok" and rec["cost_flops"] > 0
+mesh = DeviceMesh(["cpu"] * 2, ("data",))
+xs = {(i,): torch.full((3,), float(i + 1)) for i in range(2)}
+assert torch.allclose(compressed_psum_mean(xs, mesh, "data")[(0,)],
+                      torch.full((3,), 1.5), rtol=0.05)
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
