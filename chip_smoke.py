@@ -18,9 +18,14 @@ comes out:
    main-path shapes (N = 2^20), the split-N path (S > 1 ranges and the
    merge) checked taken where it must be: the sampler's Q = 100, k = 300,
    and exact duplicate points on both sides of every range boundary of the
-   kernel's own split; the ``l2diff`` form at d = 12; then a ``row_mask``
-   that is all zero and one that keeps every third row (the other rows
-   must stay untouched).  Counts exact; values bitwise where both take the
+   kernel's own split; the ``l2diff`` form at d = 12; every list size past
+   k = 32 (k in ``WIDE_KS``: the register lists of 64 to 1024 entries and
+   the row list above) in L2, L1 and L∞ at d = 3 and L2 at d = 16,
+   duplicates that tie inside a 32-point chunk, across chunks and across
+   the split's bounds, and single-row and eight-row calls at k = 256 over
+   hundreds of ranges; then a ``row_mask`` that is all zero and one that
+   keeps every third row, at k = 32 and 128 (the other rows must stay
+   untouched).  Counts exact; values bitwise where both take the
    diff form (d <= 8, and ``l2diff`` at any d), rtol 1e-6 for the d > 8
    identity form; index sets compared by distance where values are not
    bitwise;
@@ -41,8 +46,10 @@ comes out:
    rounds' grids, and a 4096-row query whose fused and host-loop answers
    and round stats must be equal;
 7. kernel times against their bounds at every timed shape: ``pairwise_topk``
-   at Q = 4096, k = 32 and at the sampler's Q = 100, k = 5 (each also as
-   first pass and merge apart); ``grid_round`` on round 0 of batch 1 and
+   at Q = 4096, k = 32 and at the sampler's Q = 100, k = 5, Q = 4096
+   self-queries at k = 64, 128, 256, 1024, single-row and eight-row calls
+   at k = 256 and Q = 512 at k = 300 (each also as first pass and merge
+   apart, each pass with its bound); ``grid_round`` on round 0 of batch 1 and
    one non-fused launch on the heaviest scheduled grid at full width,
    whose n_tests must be exactly N * N when the grid has res <= 2 per axis;
 8. ``grid_round``'s two designs timed on every scheduled grid of kitti,
@@ -215,6 +222,11 @@ N_WIDE = 1 << 16  # d = 16 cloud for the matmul-identity form
 ROWS = 4096
 GRID_ROWS = 16384
 DEGEN_ROWS = 2048  # 8 blocks of the coarse design at k = 8
+#: k > 32: each register-list size of pairwise_topk (32 * KPL = 64 ...
+#: 1024 entries, k = 33 the smallest past one entry a lane) and one k above
+#: the largest, which keeps its list in its workspace row
+WIDE_KS = (33, 64, 128, 256, 1024, 1100)
+WIDE_ROWS = 512  # phase 2's rows a k > 32 case
 SEED = 0
 FINE_TEST_BUDGET = 1 << 36  # most tests phase 8 gives the fine design
 CHUNK_ROWS = 1 << 18  # phase 11's chunked all-pairs: 4 blocks of the cloud
@@ -261,6 +273,17 @@ def shape_row(shape, ms, plain_ms, b, **extra):
     """One timed shape of a kernel for the kernels line."""
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
             "bound_by": b[1], **extra}
+
+
+#: the launch counts' key for pairwise_topk's launches at k > 32
+WIDE = "pairwise_topk k>32"
+
+
+def launch_counts():
+    """The kernels' launch counts, and pairwise_topk's at k > 32 apart."""
+    from repro_torch.kernels import build
+
+    return {**build.launch_counts(), WIDE: build.WIDE_LAUNCHES["pairwise_topk"]}
 
 
 def bound(bytes_moved, flops):
@@ -374,6 +397,40 @@ def phase_pairwise(dev, kitti, porto, rng):
         ("split ties l2 d3 k300", tie[srow], none(512, tie), tie, "l2", 300,
          0.05),
     ]
+    # k > 32: every register-list size and the row list above it, in L2 on
+    # kitti and L1 / L-inf on the subset (d = 3), L2 at d = 16
+    m = WIDE_ROWS
+    for k in WIDE_KS:
+        cases += [
+            (f"wide l2 d3 k{k}", kitti[rows[:m]], none(m, kitti), kitti,
+             "l2", k, 0.01),
+            (f"wide l1 d3 k{k}", sub[srow[:m]] + 0.01, none(m, sub), sub,
+             "l1", k, 0.5),
+            (f"wide linf d3 k{k} self", sub[srow[:m]], ids(srow[:m]), sub,
+             "linf", k, 0.1),
+        ]
+    cases += [(f"wide l2 d16 k{k} self", wide[wrow], ids(wrow), wide, "l2",
+               k, 20.0) for k in (128, 1024)]
+    # exact duplicates of point 5 inside one 32-point chunk (64..71),
+    # across a chunk boundary (94..97) and on both sides of every range
+    # boundary of the kernel's own split at this k
+    for k in (64, 256, 1024):
+        _, span = split_plan(512, N_SUB, 3, k, "l2", dev)
+        dup = sub.clone()
+        dup[64:72] = dup[5]
+        dup[94:98] = dup[5]
+        for b in range(span, N_SUB, span):
+            dup[b - 1] = dup[5]
+            dup[b] = dup[5]
+        cases += [
+            (f"wide ties l2 d3 k{k} self", dup[srow], ids(srow), dup, "l2",
+             k, 0.05),
+            (f"wide ties l1 d3 k{k}", dup[srow], none(512, dup), dup, "l1",
+             k, 0.2),
+        ]
+    # a single-row and an eight-row request: hundreds of ranges a row
+    cases += [(f"many ranges l2 d3 k256 Q={m}", kitti[rows[:m]],
+               none(m, kitti), kitti, "l2", 256, 0.01) for m in (1, 8)]
     worst = 0.0
     for tag, q, qid, p, metric, k, thr in cases:
         q = q.contiguous()
@@ -388,34 +445,39 @@ def phase_pairwise(dev, kitti, porto, rng):
                             dev)[0]
         if tag in ("sampler l2 d3 k5", "range l2 d3 k300") or "ties" in tag:
             check(s_used > 1, f"{tag}: the split path was not taken")
+        if tag.startswith("many ranges"):
+            check(s_used >= 100, f"{tag}: S={s_used}, not hundreds")
         log(f"  pairwise_topk {tag}: Q={q.shape[0]} N={p.shape[0]} S={s_used} "
             f"{'bitwise' if bitwise else 'rtol 1e-6'} ok, max|err|={err:g}, "
             f"counts max {int(got[2].max())}")
 
     # row_mask: masked rows equal the plain version's, the others untouched
+    # (k = 128: the warp list of four entries a lane)
     q, qid = kitti[rows].contiguous(), none(ROWS, kitti)
-    for tag, mask in (
-        ("all zero", torch.zeros(ROWS, dtype=torch.uint8, device=dev)),
-        ("every third row",
+    for k, tag, mask in (
+        (32, "all zero", torch.zeros(ROWS, dtype=torch.uint8, device=dev)),
+        (32, "every third row",
+         (torch.arange(ROWS, device=dev) % 3 == 0).to(torch.uint8)),
+        (128, "every third row",
          (torch.arange(ROWS, device=dev) % 3 == 0).to(torch.uint8)),
     ):
         res = []
         for fn in ("kernel", "plain"):
-            out = (torch.full((ROWS, 32), -1.0, device=dev),
-                   torch.full((ROWS, 32), -1, dtype=torch.int32, device=dev),
+            out = (torch.full((ROWS, k), -1.0, device=dev),
+                   torch.full((ROWS, k), -1, dtype=torch.int32, device=dev),
                    torch.full((ROWS,), -1, dtype=torch.int32, device=dev))
             if fn == "kernel":
-                topk_engine(q, qid, kitti, 0.01, k=32, row_mask=mask, out=out)
+                topk_engine(q, qid, kitti, 0.01, k=k, row_mask=mask, out=out)
             else:
-                pairwise_topk_ref(q, kitti, 32, radius2=0.01, query_ids=qid,
+                pairwise_topk_ref(q, kitti, k, radius2=0.01, query_ids=qid,
                                   row_mask=mask, out=out)
             res.append(out)
         torch.cuda.synchronize()
         for a, b, name in zip(*res, ("d", "idx", "counts")):
-            check(torch.equal(a, b), f"row_mask {tag}: {name} differs")
+            check(torch.equal(a, b), f"row_mask {tag} k={k}: {name} differs")
         untouched = bool((res[0][2][mask == 0] == -1).all())
-        check(untouched, f"row_mask {tag}: an unmasked row was written")
-        log(f"  pairwise_topk row_mask {tag}: Q={ROWS} k=32 bitwise ok, "
+        check(untouched, f"row_mask {tag} k={k}: an unmasked row was written")
+        log(f"  pairwise_topk row_mask {tag}: Q={ROWS} k={k} bitwise ok, "
             f"{int((mask == 0).sum())} rows untouched")
     return worst
 
@@ -548,7 +610,7 @@ def phase_main(dev, kitti_np, rng):
             log(f"    round {r.round_idx}: r={r.radius:.6g} res={r.grid_res} "
                 f"cap={r.grid_cap} rows={r.n_queries} "
                 f"resolved={r.n_resolved} n_tests={r.n_tests}")
-    counts = build.launch_counts()
+    counts = launch_counts()
     log(f"  main path built+served in {time.perf_counter() - t0:.2f}s, "
         f"launches {counts}")
     for name in ("grid_round", "pairwise_topk"):
@@ -610,7 +672,7 @@ def phase_range(dev, kitti_np, radius, rng):
     t0 = time.perf_counter()
     res = brute.query(q_np, RangeSpec(radius))
     wall = time.perf_counter() - t0
-    counts = build.launch_counts()
+    counts = launch_counts()
     check(counts["pairwise_topk"] > 0, "range path never launched the kernel")
     log(f"  RangeSpec({radius:.6g}) on {ROWS} rows: nnz={len(res.idxs)} "
         f"max row={int(res.counts.max())} passes="
@@ -709,7 +771,9 @@ def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
         part = (torch.empty((splits, nq, k), device=dev),
                 torch.empty((splits, nq, k), dtype=torch.int32, device=dev),
                 torch.empty((splits, nq), dtype=torch.int32, device=dev))
-        outs = tuple(x[0] for x in part)
+        # outputs of their own: merged into split 0's rows, every timed
+        # merge after the first would start from the merged list
+        outs = tuple(torch.empty_like(x[0]) for x in part)
         t1 = median_ms(lambda: ext.pairwise_topk(
             qq, qi, p, None, k, splits, span, t, 0, *part), 3, sync)
         t2 = (median_ms(lambda: ext.pairwise_topk_merge(
@@ -747,6 +811,49 @@ def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
         f"(S={s_split[0]}: first pass {s_split[1]:.3f} ms, merge "
         f"{s_split[2]:.3f} ms), plain {s_p:.3f} ms, bound {s_bound[0]:.4f} ms"
         f" ({s_bound[1]})")
+
+    # k > 32: a 4096-row self-query at each warp-list size, a single-row
+    # and an eight-row request (hundreds of ranges), and the shape of phase
+    # 2's range l2 d3 k300 call on phase 5's first 512 rows; rows of their
+    # own seed, so the shared draws of later phases stay as they were
+    self_rows = torch.as_tensor(np.random.default_rng(20).choice(
+        n, ROWS, replace=False), device=dev)
+    q_self = p[self_rows].contiguous()
+    qid_self = self_rows.to(torch.int32)
+    qid_none = torch.full((ROWS,), n, dtype=torch.int32, device=dev)
+    wide = [(f"Q=4096 N=2^20 d=3 k={kw} self-query", q_self, qid_self, kw)
+            for kw in (64, 128, 256, 1024)]
+    wide += [(f"Q={m} N=2^20 d=3 k=256 request", q_self[:m].contiguous(),
+              qid_none[:m], 256) for m in (1, 8)]
+    wide.append(("Q=512 N=2^20 d=3 k=300 range (phase 5's rows)",
+                 q[:512].contiguous(), qid_none[:512], 300))
+    wide_rows = []
+    for tag, qq, qi, kw in wide:
+        m = qq.shape[0]
+        w_k = median_ms(lambda: topk_engine(qq, qi, p, thr, k=kw), 3, sync)
+        w_p = median_ms(lambda: pairwise_topk_ref(qq, p, kw, radius2=thr,
+                                                  query_ids=qi), 1, sync,
+                        warmup=False)
+        w_s, w_1, w_2 = split_ms(qq, qi, kw, thr)
+        part_bytes = w_s * m * (kw * 8 + 4)
+        w_b = bound(m * d * 4 + n * d * 4 + m * 4 + m * (kw * 8 + 4),
+                    m * n * 3 * d)
+        b_1 = bound(m * d * 4 + n * d * 4 + m * 4 + part_bytes,
+                    m * n * 3 * d)
+        # the merge of sorted lists must read a row's k entries (wherever
+        # they come from), each split's head and count, and write the row;
+        # entries at or above the gate it never reads
+        b_2 = (bound(m * (kw * 8 + w_s * 8 + kw * 8 + 4), 0) if w_s > 1
+               else None)
+        log(f"  pairwise_topk {tag}: kernel {w_k:.3f} ms (S={w_s}: first "
+            f"pass {w_1:.3f} ms, bound {b_1[0]:.4f} ms ({b_1[1]}); merge "
+            f"{w_2:.3f} ms, bound "
+            f"{f'{b_2[0]:.4f} ms ({b_2[1]})' if b_2 else '-'}), plain "
+            f"{w_p:.3f} ms, bound {w_b[0]:.4f} ms ({w_b[1]})")
+        wide_rows.append(shape_row(
+            tag, w_k, w_p, w_b, splits=w_s, first_pass_ms=w_1,
+            first_pass_bound_ms=b_1[0], merge_ms=w_2,
+            merge_bound_ms=b_2[0] if b_2 else None))
 
     # round 0 of batch 1: every row of the cloud runs (the plain version
     # of a later, coarser round would take hours at this width)
@@ -803,7 +910,7 @@ def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
         f"{h_bound[0]:.4f} ms ({h_bound[1]})")
     return ((t_k, t_p, pw_bound, pw_split), (s_k, s_p, s_bound, s_split),
             (g_k, g_p, g_bound),
-            (h_k, None, h_bound, h_tests))
+            (h_k, None, h_bound, h_tests), wide_rows)
 
 
 # -- phase 8: the two grid_round designs on every scheduled grid ------------
@@ -949,7 +1056,7 @@ def counted(tag, fn, tally, need=("grid_round",)):
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = build.launch_counts()
+    counts = launch_counts()
     for name in need:
         check(counts[name] > 0, f"{tag}: never launched {name}")
     for name, c in counts.items():
@@ -1533,11 +1640,12 @@ def hold_slot(dev, tag, q, blk, mask, k, metric, thr):
     torch.cuda.synchronize()
     err = compare_topk(tag, got, want, q, blk, metric, True)
     sync = torch.cuda.synchronize
+    # each timed call rewrites the same selected rows of its own outputs
     ms = median_ms(lambda: topk_engine(q, none, blk, thr, k=k, metric=metric,
-                                       row_mask=mask, out=fresh()), 3, sync)
+                                       row_mask=mask, out=got), 3, sync)
     plain = median_ms(lambda: pairwise_topk_ref(
         q, blk, k, radius2=thr, query_ids=none, metric=metric, row_mask=mask,
-        out=fresh()), 1, sync, warmup=False)
+        out=want), 1, sync, warmup=False)
     active = int(mask.sum())
     d = q.shape[1]
     # the selected rows' work: each against every point of the slot, 3d
@@ -3597,12 +3705,12 @@ def main() -> int:
     log("phase 6: porto 2^18, fused and host loop")
     phase_porto(dev, rng)
     log("phase 7: kernel times at main-path shapes")
-    pw_t, samp_t, g_t, heavy_t = phase_times(dev, index, b1, q, qid, thr,
-                                             heavy, rng)
+    pw_t, samp_t, g_t, heavy_t, wide_rows = phase_times(
+        dev, index, b1, q, qid, thr, heavy, rng)
     log("phase 8: grid_round's two designs on every scheduled grid")
     sweep = phase_designs(dev, kitti_sched)
     del kitti_sched
-    tally = {"pairwise_topk": 0, "grid_round": 0}
+    tally = {"pairwise_topk": 0, "grid_round": 0, WIDE: 0}
     log(f"phase 9: fixed_radius on kitti 2^20 at r = {radius:.6g}")
     fr_index = phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally)
     log("phase 10: generic routes on 4096 rows")
@@ -3690,6 +3798,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/pairwise_topk.py:181",
             "launches": main_counts["pairwise_topk"]
             + range_counts["pairwise_topk"] + tally["pairwise_topk"],
+            "launches_k_above_32": main_counts[WIDE] + range_counts[WIDE]
+            + tally[WIDE],
             "max_abs_err": max(pw_err, range_err, placed_err,
                                par["topk_err"]),
             "ms": t_k,
@@ -3705,7 +3815,7 @@ def main() -> int:
                           merge_ms=t[3][2])
                 for tag, t in (("Q=4096 N=2^20 d=3 k=32 range", pw_t),
                                ("Q=100 N=2^20 d=3 k=5 sampler", samp_t))
-            ] + placed_rows,
+            ] + wide_rows + placed_rows,
         },
         {
             "name": "grid_round",

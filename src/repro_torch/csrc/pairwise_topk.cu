@@ -10,26 +10,53 @@
 // ranges): each block streams only its own contiguous range of the points
 // through shared memory and keeps, per query row, the range's k-best list
 // and in-radius count, written to workspace that the wrapper allocates:
-// lists (S, Q, k), counts (S, Q).  The host picks S from (Q, N, k) so that
+// lists (S, Q, k), counts (S, Q).  The host picks S from (Q, N, k) and the
+// first pass's rows a block (pairwise_topk_rows_per_block below) so that
 // several blocks per SM are in flight even at Q = 100 (the Alg. 2
 // sampler); with S = 1 the first pass writes the outputs and the second is
-// skipped.  The second pass merges each row's S partial lists, one thread
-// a row: ranges are contiguous and increasing, so taking the earlier range
+// skipped.  The second pass merges each row's S partial lists in range
+// order: ranges are contiguous and increasing, so taking the earlier range
 // on an equal distance, which is the lower index, is the global (distance,
 // lowest index) order; counts are summed in int32.  The (Q, N) distance
-// matrix never exists.  The first pass's rows per block, which the host
-// needs to choose S, come from pairwise_topk_rows_per_block below.
+// matrix never exists.
 //
-// First pass, k <= 32 (every call on the main path): a warp serves four
-// queries (one for the generic forms) and its lanes take 32 consecutive
-// points at a time, so each shared load of a point serves four tests; the
-// queries' lists are spread over the warp's lanes, and a candidate below
-// a list's k-th best is inserted by the whole warp with one ballot and one
-// shuffle, about k ln(N / k) times a query.  (With one thread a query, a
-// thread's insertion sort held up its warp whenever any lane had a
-// candidate to insert, which early in every range is nearly always.)
-// First pass, k > 32 (the range route's second pass): one thread a query,
-// its list in its workspace row.
+// The lists.  Both passes keep each query's list with a whole warp, and
+// insert one candidate at a time:
+//  - k <= kMaxWarpK = 1024: a WarpTopK (topk_list.cuh) in registers, KPL =
+//    1, 2, 4, 8, 16 or 32 entries a lane, the fewest whose 32 * KPL
+//    entries hold k, right-aligned so the k-th entry (the gate) is the last
+//    slot of lane 31.  A candidate strictly below the gate is inserted by
+//    the whole warp: each lane moves its own entries above it up one slot
+//    and takes the last entry of the lane below by one shuffle (at KPL = 1
+//    a ballot finds the place), then one shuffle reads the gate back: O(KPL)
+//    steps a lane whatever the list's length.
+//  - k > 1024 (the range route's second call on balls of more than 1024
+//    points): a RowWarpTopK, the list in the query's workspace or output
+//    row.  A 32-way search finds the place and the warp moves the entries
+//    above it up one slot, 32 consecutive words at a time: O(k / 32)
+//    coalesced steps an insertion, through L1 and L2.
+// About k ln(N / k) + k insertions a query and range on points in random
+// order; more where the points come in an order that approaches the query.
+//
+// Order argument: candidates are offered in index order (a chunk's lanes in
+// lane order), each against the gate as it stands, and an insertion goes
+// after every entry of equal distance.  So the list's first k entries are
+// always the k least (distance, index) pairs seen so far: a candidate not
+// admitted is at or above the k-th by distance and later by index.  This
+// is the order of lax.top_k and of the plain version's stable sort, bit for
+// bit; +inf and NaN are never below a gate, so empty slots stay (+inf, n).
+//
+// First pass: a warp serves QPW queries (four where the tile holds float4
+// rows and KPL <= 8, two at KPL = 16, else one) and its lanes take 32
+// consecutive staged points at a time, so each shared load of a point
+// serves QPW tests; a chunk in which no lane beats its query's gate costs
+// one vote.  (With one thread a query, a thread's insertion sort would
+// hold up its warp whenever any lane had a candidate, which early in every
+// range is nearly always, and a warp's list accesses would touch 32 rows.)
+// Merge: a warp a row.  Split 0's list is taken as it is; then the heads
+// of 32 splits at a time are read at once, and only a split whose head is
+// below the gate is walked, 32 entries at a time in order until one is not
+// below the gate (the lists are sorted, so no later one is).
 //
 // Bound on this card: operations.  Per pair the L2 form costs d subtractions
 // and d multiply-adds, 3d FP32 flops, against O((Q + N) d) bytes moved.  The
@@ -57,17 +84,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "launch.h"
 #include "topk_list.cuh"
 
 namespace {
 
-using repro_torch::MemTopK;
+using repro_torch::RowWarpTopK;
+using repro_torch::WarpTopK;
 
 constexpr int kThreads = 128;
 constexpr int kTileFloats = 8192;  // 32 KB of shared memory per block
 constexpr int kMaxTile = 2048;
 constexpr int kMergeThreads = 128;
+constexpr int kMaxWarpK = 1024;  // the largest WarpTopK: 32 entries a lane
+constexpr unsigned kAllLanes = 0xffffffffu;  // every sync call: the whole warp
 constexpr int kLowD = 8;
 enum { kL2 = 0, kL1 = 1, kLinf = 2, kL2Diff = 3 };
 
@@ -146,14 +178,46 @@ constexpr int form_of(int metric, int d) {
                                                                     : -1;
 }
 
-// Query rows a warp serves for k <= 32: four where the tile holds float4
-// rows, else one.
-constexpr int qpw_of(int form) { return form > 0 ? 4 : 1; }
+// Entries a lane of the warp list holds: the fewest of 1, 2, 4, 8, 16, 32
+// whose 32 * KPL entries hold k; 0 above kMaxWarpK, where the list is a
+// RowWarpTopK in the query's row (its kPerLane).
+constexpr int kpl_of(int k) {
+  return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= 256 ? 8
+         : k <= 512 ? 16 : k <= kMaxWarpK ? 32 : 0;
+}
 
-// Query rows a block of the first pass serves: a warp's rows for k <= 32,
-// one a thread beyond.
+// Calls f with an (empty) list of the type that keeps a k-best list: the
+// one place where k picks the list, for both passes.
+template <class F>
+void with_list(int k, F f) {
+  switch (kpl_of(k)) {
+    case 0:
+      return f(RowWarpTopK{});
+    case 1:
+      return f(WarpTopK<1>{});
+    case 2:
+      return f(WarpTopK<2>{});
+    case 4:
+      return f(WarpTopK<4>{});
+    case 8:
+      return f(WarpTopK<8>{});
+    case 16:
+      return f(WarpTopK<16>{});
+    default:
+      return f(WarpTopK<32>{});
+  }
+}
+
+// Query rows a warp serves: four where the tile holds float4 rows and the
+// lists are short, two at 16 entries a lane, else one (the registers of
+// QPW lists stay at most 64 a thread; one for the row list).
+constexpr int qpw_of(int form, int kpl) {
+  return form <= 0 || kpl == 0 ? 1 : kpl <= 8 ? 4 : kpl == 16 ? 2 : 1;
+}
+
+// Query rows a block of the first pass serves: its warps' rows.
 constexpr int rows_per_block(int form, int k) {
-  return k <= 32 ? kThreads / 32 * qpw_of(form) : kThreads;
+  return kThreads / 32 * qpw_of(form, kpl_of(k));
 }
 
 // Stages points [base, base + m) in the block's tile: float4 rows for
@@ -191,14 +255,14 @@ __device__ __forceinline__ float pair_dist(const float (&qv)[kLowD],
                             d);
 }
 
-// k <= 32: one warp serves QPW queries of the block's tile of queries.  Its
-// lanes take 32 consecutive candidates at a time (lane l the l-th), so a
-// shared load of one point serves QPW tests, and each query's list is
-// spread over the warp: lane j holds entry j, lanes j >= k hold (+inf, n).
-// A candidate below its query's k-th best is inserted by the whole warp
-// (a ballot finds its place, the entries after it move up a lane), the
-// candidates of a chunk in lane order, which is index order.
-template <int METRIC, int FORM, int QPW>
+// One warp serves QPW queries of the block's tile of queries.  Its lanes
+// take 32 consecutive candidates at a time (lane l the l-th), so a shared
+// load of one point serves QPW tests, and each query's list is kept by the
+// whole warp: a WarpTopK<KPL> in registers (k <= kMaxWarpK) or a
+// RowWarpTopK in the query's workspace row.  A candidate below its query's
+// gate is inserted by the whole warp, the candidates of a chunk in lane
+// order, which is index order.
+template <int METRIC, int FORM, int QPW, class List>
 __global__ void __launch_bounds__(kThreads)
 pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
                      const float* __restrict__ p,
@@ -211,12 +275,12 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
   float* norms = tile + tp * d;  // (tp,) squared norms, L2 identity only
   constexpr bool kLow = FORM >= 0;
   constexpr int kWarps = kThreads / 32;
-  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  int row[QPW], self[QPW], count[QPW], li[QPW];
-  float qv[QPW][kLowD], qn[QPW], ld[QPW], gate[QPW];
+  int row[QPW], self[QPW], count[QPW];
+  float qv[QPW][kLowD], qn[QPW], gate[QPW];
+  List list[QPW];
   bool any_active = false;
 #pragma unroll
   for (int u = 0; u < QPW; ++u) {
@@ -230,8 +294,8 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
     for (int a = 0; a < kLowD; ++a) qv[u][a] = (kLow && a < d) ? qr[a] : 0.0f;
     qn[u] = (!kLow && METRIC == kL2) ? sq_norm(qr, d) : 0.0f;
     count[u] = 0;
-    ld[u] = CUDART_INF_F;
-    li[u] = n;
+    const size_t out_row = ((size_t)blockIdx.y * nq + row[u]) * k;
+    if (act) list[u].init(part_d + out_row, part_i + out_row, k, lane, n);
     // an inactive query admits nothing
     gate[u] = act ? CUDART_INF_F : -1.0f;
   }
@@ -239,11 +303,13 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
   const int lo = blockIdx.y * span;
   const int hi = min(n, lo + span);
 
-  // one chunk of 32 candidates of the m staged in the tile; full_chunk:
-  // all 32 are staged (a tile of a generic form holds tp rows, which need
-  // not be a multiple of 32, so the last chunk of any tile may be short)
-  auto chunk = [&](int base, int m, int c0, bool full_chunk) {
-    const bool valid = full_chunk || c0 + lane < m;
+  // one chunk of 32 candidates of the m staged in the tile; whole (a
+  // std::bool_constant): all 32 are staged (a tile of a generic form holds
+  // tp rows, which need not be a multiple of 32, so the last chunk of any
+  // tile may be short).  Each of the two forms has one call site, so both
+  // are inlined and the lists stay in registers.
+  auto chunk = [&](int base, int m, int c0, auto whole) {
+    const bool valid = decltype(whole)::value || c0 + lane < m;
     const int j = valid ? c0 + lane : 0;  // the rest reads a staged row
     float dist[QPW];
     bool pass = false;
@@ -260,31 +326,18 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
       count[u] += (valid && dist[u] <= thr);
       pass = pass || (valid && dist[u] < gate[u]);
     }
-    if (!__any_sync(full, pass)) return;
+    if (!__any_sync(kAllLanes, pass)) return;
 #pragma unroll
     for (int u = 0; u < QPW; ++u) {
-      unsigned todo = __ballot_sync(full, valid && dist[u] < gate[u]);
+      unsigned todo = __ballot_sync(kAllLanes, valid && dist[u] < gate[u]);
       while (todo != 0) {
         const int src = __ffs(todo) - 1;
         todo &= todo - 1;
-        const float dd = __shfl_sync(full, dist[u], src);
+        const float dd = __shfl_sync(kAllLanes, dist[u], src);
         const int gid = base + c0 + src;
         if (!(dd < gate[u]) || gid == self[u]) continue;  // warp-uniform
-        const int at = __popc(__ballot_sync(full, ld[u] <= dd));
-        const float up_d = __shfl_up_sync(full, ld[u], 1);
-        const int up_i = __shfl_up_sync(full, li[u], 1);
-        if (lane > at) {
-          ld[u] = up_d;
-          li[u] = up_i;
-        } else if (lane == at) {
-          ld[u] = dd;
-          li[u] = gid;
-        }
-        if (lane >= k) {
-          ld[u] = CUDART_INF_F;
-          li[u] = n;
-        }
-        gate[u] = __shfl_sync(full, ld[u], k - 1);
+        list[u].insert(dd, gid, lane);
+        gate[u] = list[u].gate();
       }
     }
   };
@@ -293,8 +346,8 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
     const int m = min(tp, hi - base);
     stage_tile<METRIC, FORM>(p, base, m, d, smem4, tile, norms);
     int c0 = 0;
-    for (; c0 + 32 <= m; c0 += 32) chunk(base, m, c0, true);
-    if (c0 < m) chunk(base, m, c0, false);
+    for (; c0 + 32 <= m; c0 += 32) chunk(base, m, c0, std::true_type{});
+    if (c0 < m) chunk(base, m, c0, std::false_type{});
   }
 
 #pragma unroll
@@ -302,12 +355,9 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
     if (gate[u] < 0.0f) continue;  // inactive: nothing is written
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      count[u] += __shfl_xor_sync(full, count[u], off);
+      count[u] += __shfl_xor_sync(kAllLanes, count[u], off);
     const size_t out_row = ((size_t)blockIdx.y * nq + row[u]) * k;
-    if (lane < k) {
-      part_d[out_row + lane] = ld[u];
-      part_i[out_row + lane] = li[u];
-    }
+    list[u].store(part_d + out_row, part_i + out_row, k, lane);
     if (lane == 0) {
       // the self pair was counted; take it back out with the same
       // arithmetic on the same values
@@ -320,73 +370,9 @@ pairwise_warp_kernel(const float* __restrict__ q, const int* __restrict__ qid,
   }
 }
 
-// k > 32: one thread a query, its list in its workspace row.
-template <int METRIC, int FORM>
-__global__ void __launch_bounds__(kThreads)
-pairwise_topk_kernel(const float* __restrict__ q, const int* __restrict__ qid,
-                     const float* __restrict__ p,
-                     const unsigned char* __restrict__ row_mask, int nq, int n,
-                     int d, int k, int span, int tp, float thr,
-                     float* __restrict__ part_d, int* __restrict__ part_i,
-                     int* __restrict__ part_c) {
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);  // (tp, d) coordinates
-  float* norms = tile + tp * d;  // (tp,) squared norms, L2 identity only
-  constexpr bool kVec = FORM > 0;
-  constexpr bool kLow = FORM >= 0;
-
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool active =
-      row < nq && (row_mask == nullptr || row_mask[row] != 0);
-  if (!__syncthreads_or(active)) return;  // the whole block leaves together
-  const int lo = blockIdx.y * span;
-  const int hi = min(n, lo + span);
-
-  const int self = active ? qid[row] : -1;
-  const float* qr = q + (size_t)(active ? row : 0) * d;
-  float qv[kLowD];
-  float qn = 0.0f;
-  if (kLow) {
-#pragma unroll
-    for (int a = 0; a < kLowD; ++a) qv[a] = (active && a < d) ? qr[a] : 0.0f;
-  } else if (METRIC == kL2 && active) {
-    qn = sq_norm(qr, d);
-  }
-  const size_t out_row = ((size_t)blockIdx.y * nq + row) * k;
-
-  MemTopK list;
-  if (active) list.init(part_d + out_row, part_i + out_row, 1, k, n);
-  int count = 0;
-
-  for (int base = lo; base < hi; base += tp) {
-    const int m = min(tp, hi - base);
-    stage_tile<METRIC, FORM>(p, base, m, d, smem4, tile, norms);
-    if (!active) continue;
-    for (int j = 0; j < m; ++j) {
-      float dist;
-      if (kVec) {
-        dist = l2_dist4<(FORM > 0 ? FORM : 2)>(qv, smem4[j]);
-      } else if (kLow) {
-        dist = lowd_dist<METRIC>(qv, tile + j * d, d);
-      } else {
-        dist = highd_dist<METRIC>(qr, qn, tile + j * d, norms[j], d);
-      }
-      count += (dist <= thr);
-      const int g = base + j;
-      if (dist < list.worst && g != self) list.push(dist, g, k);
-    }
-  }
-  if (active) {
-    // the self pair was counted above; take it back out with the same
-    // arithmetic on the same values
-    if (self >= lo && self < hi)
-      count -= pair_dist<METRIC, FORM>(qv, qr, qn, p + (size_t)self * d, d) <=
-               thr;
-    part_c[(size_t)blockIdx.y * nq + row] = count;
-  }
-}
-
-// Merge: one thread a row, the list in the output row.
+// Merge: a warp a row, its list a WarpTopK<KPL> (k <= kMaxWarpK) or a
+// RowWarpTopK in the output row.
+template <class List>
 __global__ void __launch_bounds__(kMergeThreads)
 pairwise_merge_kernel(const float* __restrict__ part_d,
                       const int* __restrict__ part_i,
@@ -394,23 +380,60 @@ pairwise_merge_kernel(const float* __restrict__ part_d,
                       const unsigned char* __restrict__ row_mask, int nq,
                       int splits, int k, int n, float* __restrict__ out_d,
                       int* __restrict__ out_i, int* __restrict__ out_c) {
-  const int row = blockIdx.x * kMergeThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  // warp-uniform: the whole warp leaves
   if (row >= nq || (row_mask != nullptr && row_mask[row] == 0)) return;
-  MemTopK list;
-  list.init(out_d + (size_t)row * k, out_i + (size_t)row * k, 1, k, n);
+  const size_t split_stride = (size_t)nq * k;
+  const float* rd = part_d + (size_t)row * k;  // split 0's list of the row
+  const int* ri = part_i + (size_t)row * k;
   int count = 0;
-  for (int s = 0; s < splits; ++s) {
-    const size_t at = ((size_t)s * nq + row) * k;
+  for (int s = lane; s < splits; s += 32)
     count += part_c[(size_t)s * nq + row];
-    // arriving in (range, slot) order and going after every equal entry
-    // keeps the lowest index first
-    for (int j = 0; j < k; ++j) {
-      const float dv = part_d[at + j];
-      if (!(dv < list.worst)) break;
-      list.push(dv, part_i[at + j], k);
+  float* od = out_d + (size_t)row * k;
+  int* oi = out_i + (size_t)row * k;
+  List list;
+  list.load(od, oi, rd, ri, k, lane, n);  // split 0 alone gives its own list
+  float gate = list.gate();
+  for (int s0 = 1; s0 < splits; s0 += 32) {
+    // the heads of 32 splits at once; one at or above the gate adds
+    // nothing, since the gate only falls
+    const int s = s0 + lane;
+    const float head = s < splits ? rd[s * split_stride] : CUDART_INF_F;
+    unsigned todo = __ballot_sync(kAllLanes, head < gate);
+    while (todo != 0) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const size_t at = (size_t)(s0 + src) * split_stride;
+      // the split's entries in (distance, index) order, 32 at a time,
+      // until one is not below the gate
+      bool more = true;
+      for (int c0 = 0; more && c0 < k; c0 += 32) {
+        const bool valid = c0 + lane < k;
+        const float dv = valid ? rd[at + c0 + lane] : CUDART_INF_F;
+        const int iv = valid ? ri[at + c0 + lane] : n;
+        unsigned take = __ballot_sync(kAllLanes, dv < gate);
+        more = take == kAllLanes;
+        while (take != 0) {
+          const int from = __ffs(take) - 1;
+          take &= take - 1;
+          const float dd = __shfl_sync(kAllLanes, dv, from);
+          const int id = __shfl_sync(kAllLanes, iv, from);
+          if (!(dd < gate)) {  // warp-uniform; no later entry is below
+            more = false;
+            break;
+          }
+          list.insert(dd, id, lane);
+          gate = list.gate();
+        }
+      }
     }
   }
-  out_c[row] = count;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_xor_sync(kAllLanes, count, off);
+  list.store(od, oi, k, lane);
+  if (lane == 0) out_c[row] = count;
 }
 
 struct Args {
@@ -430,16 +453,13 @@ cudaError_t launch_form(int splits, int smem, cudaStream_t stream,
                         const Args& a) {
   const int per_block = rows_per_block(FORM, a.k);
   const dim3 grid((a.nq + per_block - 1) / per_block, splits);
-  if (a.k <= 32) {
-    pairwise_warp_kernel<METRIC, FORM, qpw_of(FORM)>
-        <<<grid, kThreads, smem, stream>>>(
-            a.q, a.qid, a.p, a.row_mask, a.nq, a.n, a.d, a.k, a.span, a.tp,
-            a.thr, a.part_d, a.part_i, a.part_c);
-  } else {
-    pairwise_topk_kernel<METRIC, FORM><<<grid, kThreads, smem, stream>>>(
-        a.q, a.qid, a.p, a.row_mask, a.nq, a.n, a.d, a.k, a.span, a.tp, a.thr,
-        a.part_d, a.part_i, a.part_c);
-  }
+  with_list(a.k, [&](auto list) {
+    using List = decltype(list);
+    pairwise_warp_kernel<METRIC, FORM, qpw_of(FORM, List::kPerLane), List>
+        <<<grid, kThreads, smem, stream>>>(a.q, a.qid, a.p, a.row_mask, a.nq,
+                                           a.n, a.d, a.k, a.span, a.tp, a.thr,
+                                           a.part_d, a.part_i, a.part_c);
+  });
   return cudaGetLastError();
 }
 
@@ -504,9 +524,13 @@ extern "C" int pairwise_topk_merge_launch(const float* part_d,
   if (nq <= 0) return cudaSuccess;
   if (splits <= 0 || k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nq + kMergeThreads - 1) / kMergeThreads);
-  pairwise_merge_kernel<<<grid, kMergeThreads, 0, s>>>(
-      part_d, part_i, part_c, row_mask, nq, splits, k, n, out_d, out_i, out_c);
+  constexpr int rows = kMergeThreads / 32;
+  const dim3 grid((nq + rows - 1) / rows);
+  with_list(k, [&](auto list) {
+    pairwise_merge_kernel<decltype(list)><<<grid, kMergeThreads, 0, s>>>(
+        part_d, part_i, part_c, row_mask, nq, splits, k, n, out_d, out_i,
+        out_c);
+  });
   return cudaGetLastError();
 }
 

@@ -1,13 +1,21 @@
-// Per-thread running k-best lists shared by the port's CUDA kernels.
+// Running k-best lists shared by the port's CUDA kernels.
 //
 // Candidates reach a list in increasing id (pairwise_topk) or candidate
 // position (grid_round) order, and a new entry is placed after every entry
 // whose distance is <= its own.  The list is therefore ordered by the
 // (distance, arrival) pair, which is the order lax.top_k gives the JAX
 // reference: equal distances go to the lowest index.  A candidate is offered
-// only when its distance is strictly below the current k-th best (`worst`),
-// so NaN distances and +inf are never kept, and empty slots stay
-// (+inf, sentinel).
+// only when its distance is strictly below the current k-th best (`worst`,
+// or `gate()` for the warp lists), so NaN distances and +inf are never
+// kept, and empty slots stay (+inf, sentinel).
+//
+// RegTopK and MemTopK are one thread's lists (grid_round).  WarpTopK is
+// one list spread over a warp's 32 lanes in registers (pairwise_topk's
+// first pass and merge at k <= 32 * 32): every lane moves its own entries
+// in one insertion, so the warp inserts a candidate in O(KPL) steps a lane
+// and one shuffle.  RowWarpTopK is one list of any k in a row of memory,
+// kept by a whole warp (pairwise_topk above 32 * 32): an insertion moves
+// the entries above its place 32 at a time, every access coalesced.
 #pragma once
 
 #include <math_constants.h>
@@ -111,6 +119,200 @@ struct MemTopK {
       oi[j] = i[j * stride];
     }
   }
+};
+
+// A list of k entries spread over the 32 lanes of a warp, KPL entries a
+// lane in registers: lane l holds positions [l * KPL, (l + 1) * KPL) in
+// order, so k <= 32 * KPL.  The list is right-aligned: its k entries sit at
+// the last k positions and the first 32 * KPL - k hold -inf, which no
+// insertion passes.  So the k-th entry, the gate, is always the last slot
+// of lane 31, and an insertion drops the entry it pushes past the end.
+// Every call is made by the whole warp with warp-uniform arguments; every
+// register index is a constant, so the list stays out of local memory.
+template <int KPL>
+struct WarpTopK {
+  static constexpr int kPerLane = KPL;
+  float d[KPL];
+  int i[KPL];
+
+  // Position of entry e is e + pad, pad = 32 * KPL - k.
+  __device__ __forceinline__ static int pad(int k) { return 32 * KPL - k; }
+
+  // k empty entries (+inf, sentinel).  The row (od, oi) is where store
+  // writes; the register list does not use it.
+  __device__ __forceinline__ void init(float*, int*, int k, int lane,
+                                       int sentinel) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      d[j] = lane * KPL + j < pad(k) ? -CUDART_INF_F : CUDART_INF_F;
+      i[j] = sentinel;
+    }
+  }
+
+  // The k entries of a list stored in order at (sd, si).
+  __device__ __forceinline__ void load(float*, int*, const float* sd,
+                                       const int* si, int k, int lane,
+                                       int sentinel) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int e = lane * KPL + j - pad(k);
+      d[j] = e >= 0 ? sd[e] : -CUDART_INF_F;
+      i[j] = e >= 0 ? si[e] : sentinel;
+    }
+  }
+
+  // Places (dist, id) after every entry whose distance is <= dist and
+  // drops the last entry: each lane moves its entries above dist up one
+  // slot, its first slot taking the last entry of the lane below when that
+  // one moves up too (at one entry a lane, a ballot finds the place).
+  // Caller guarantees dist < gate().
+  __device__ __forceinline__ void insert(float dist, int id, int lane) {
+    if constexpr (KPL == 1) {
+      const int at = __popc(__ballot_sync(0xffffffffu, d[0] <= dist));
+      const float up_d = __shfl_up_sync(0xffffffffu, d[0], 1);
+      const int up_i = __shfl_up_sync(0xffffffffu, i[0], 1);
+      if (lane > at) {
+        d[0] = up_d;
+        i[0] = up_i;
+      } else if (lane == at) {
+        d[0] = dist;
+        i[0] = id;
+      }
+      return;
+    }
+    float below_d = __shfl_up_sync(0xffffffffu, d[KPL - 1], 1);
+    const int below_i = __shfl_up_sync(0xffffffffu, i[KPL - 1], 1);
+    if (lane == 0) below_d = -CUDART_INF_F;  // nothing below position 0
+    // selects, not branches: nvcc turns the if-else form into branches
+    // at KPL >= 2, which a warp takes apart lane by lane
+#pragma unroll
+    for (int j = KPL - 1; j > 0; --j) {
+      const bool up = d[j - 1] > dist;
+      const bool put = d[j] > dist;
+      d[j] = up ? d[j - 1] : put ? dist : d[j];
+      i[j] = up ? i[j - 1] : put ? id : i[j];
+    }
+    const bool up = below_d > dist;
+    const bool put = d[0] > dist;
+    d[0] = up ? below_d : put ? dist : d[0];
+    i[0] = up ? below_i : put ? id : i[0];
+  }
+
+  // The k-th entry's distance, on every lane.
+  __device__ __forceinline__ float gate() const {
+    return __shfl_sync(0xffffffffu, d[KPL - 1], 31);
+  }
+
+  // The k entries to (od, oi) in order.
+  __device__ __forceinline__ void store(float* od, int* oi, int k,
+                                        int lane) const {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int e = lane * KPL + j - pad(k);
+      if (e >= 0) {
+        od[e] = d[j];
+        oi[e] = i[j];
+      }
+    }
+  }
+};
+
+// A list of any k kept by a whole warp in a row of memory (stride 1: a
+// workspace or output row): entries in order at d[0, k), the `filled`
+// finite ones first, then (+inf, sentinel).  An insertion finds its place
+// with a 32-way search over the finite entries and moves those above it up
+// one slot, 32 at a time from the top, so every access of the warp is to
+// consecutive words; the warp's lanes keep the gate and the count.  Same
+// calls as WarpTopK, so one kernel template takes either.
+struct RowWarpTopK {
+  static constexpr int kPerLane = 0;  // no register entries
+  float* d;
+  int* i;
+  int k;
+  int filled;
+  float kth;
+
+  // k empty entries in the row (od, oi).
+  __device__ __forceinline__ void init(float* od, int* oi, int k_, int lane,
+                                       int sentinel) {
+    d = od;
+    i = oi;
+    k = k_;
+    filled = 0;
+    kth = CUDART_INF_F;
+    for (int e = lane; e < k; e += 32) {
+      d[e] = CUDART_INF_F;
+      i[e] = sentinel;
+    }
+    __syncwarp();
+  }
+
+  // The list stored in order at (sd, si), copied to the row (od, oi).
+  __device__ __forceinline__ void load(float* od, int* oi, const float* sd,
+                                       const int* si, int k_, int lane,
+                                       int) {
+    d = od;
+    i = oi;
+    k = k_;
+    for (int e = lane; e < k; e += 32) {
+      d[e] = sd[e];
+      i[e] = si[e];
+    }
+    __syncwarp();
+    filled = k;
+    filled = place(3.402823466e+38f, lane);  // the finite entries
+    kth = filled < k ? CUDART_INF_F : d[k - 1];
+  }
+
+  // The number of entries whose distance is <= dist (all of them finite).
+  __device__ __forceinline__ int place(float dist, int lane) const {
+    int lo = 0, hi = filled;  // entries below lo are <= dist, from hi on >
+    while (hi - lo > 32) {
+      const int step = (hi - lo + 31) / 32;
+      const int e = lo + (lane + 1) * step - 1;  // the last of segment lane
+      const int c =
+          __popc(__ballot_sync(0xffffffffu, e < hi && d[e] <= dist));
+      lo += c * step;  // segment c holds the place
+      hi = min(hi, lo + step);
+    }
+    const int e = lo + lane;
+    return lo + __popc(__ballot_sync(0xffffffffu, e < hi && d[e] <= dist));
+  }
+
+  // Places (dist, id) after every entry whose distance is <= dist; the
+  // last entry drops out once the row is full.  Caller guarantees
+  // dist < gate().
+  __device__ __forceinline__ void insert(float dist, int id, int lane) {
+    const int at = place(dist, lane);
+    const int top = filled < k ? filled : k - 1;  // the last slot written
+    for (int hi = top; hi > at; hi -= 32) {
+      const int e = hi - lane;  // moves from e - 1 to e
+      float vd = 0.0f;
+      int vi = 0;
+      if (e > at) {
+        vd = d[e - 1];
+        vi = i[e - 1];
+      }
+      __syncwarp();
+      if (e > at) {
+        d[e] = vd;
+        i[e] = vi;
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      d[at] = dist;
+      i[at] = id;
+    }
+    __syncwarp();
+    filled += filled < k;
+    kth = filled < k ? CUDART_INF_F : d[k - 1];
+  }
+
+  __device__ __forceinline__ float gate() const { return kth; }
+
+  // The list already lives in its row.
+  __device__ __forceinline__ void store(float*, int*, int, int) const {}
 };
 
 }  // namespace repro_torch

@@ -13,6 +13,8 @@ first use.
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show which
 kernels its path went through (``reset_launches`` / ``launch_counts``).
+``WIDE_LAUNCHES`` counts apart the ``pairwise_topk`` launches at k > 32,
+whose lists hold several entries a lane or live in memory rows.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from pathlib import Path
 
 __all__ = [
     "LAUNCHES",
+    "WIDE_LAUNCHES",
     "BUILD_DIR",
     "extension",
     "count_launch",
@@ -35,12 +38,15 @@ SOURCES = ("binding.cpp", "pairwise_topk.cu", "grid_round.cu")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 LAUNCHES = {"pairwise_topk": 0, "grid_round": 0}
+WIDE_LAUNCHES = {"pairwise_topk": 0}  # a part of LAUNCHES: k > 32
 _EXT = None
 _LOCK = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, wide: bool = False) -> None:
     LAUNCHES[name] += 1
+    if wide:
+        WIDE_LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict:
@@ -48,8 +54,9 @@ def launch_counts() -> dict:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def extension():

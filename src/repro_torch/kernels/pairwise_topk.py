@@ -5,7 +5,12 @@ The kernel (``csrc/pairwise_topk.cu``) replaces the Pallas TPU kernel
 streaming exact top-k and an in-radius count, with the (Q, N) distance
 matrix never materialized.  It runs in two passes: S blocks per query
 tile each scan one contiguous range of the points into a partial list,
-and a merge pass combines each row's S lists (``choose_splits`` picks S).
+and a merge pass combines each row's S lists (``choose_splits`` picks S
+from the first pass's rows a block, which the extension reports).  Both
+passes keep each list with a whole warp: up to k = 1024 in registers
+spread over its lanes, above in the row of memory the list is written to.
+The first pass serves 4, 2 or 1 queries a warp (16, 8 or 4 rows a block
+of four warps), the merge a row a warp.
 Its plain PyTorch version is ``repro_torch.kernels.ref.pairwise_topk_ref``
 (and ``ref.merge_partial_topk`` for the merge); ``ops.topk_engine`` picks
 between kernel and plain version by the tensors' device.
@@ -130,5 +135,5 @@ def pairwise_topk_cuda(
                       METRIC_IDS[metric], *part)
     if splits > 1:
         ext.pairwise_topk_merge(*part, row_mask, n, od, oi, oc)
-    count_launch("pairwise_topk")
+    count_launch("pairwise_topk", wide=k > 32)
     return out

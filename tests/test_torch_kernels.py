@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core.brute import brute_knn_engine
-from repro_torch.kernels.build import launch_counts
+from repro_torch.kernels.build import WIDE_LAUNCHES, launch_counts
 from repro_torch.kernels.ops import pairwise_topk, topk_engine
 from repro_torch.kernels.pairwise_topk import (
     MIN_SPAN,
@@ -103,6 +103,38 @@ def test_plain_pairwise_topk_matches_pallas(nq, n, d, k, metric, radius,
     )
     if ids is not None:
         assert not (got[1].numpy() == ids[:, None]).any()
+
+
+def _quantised(rng, shape, steps=6, scale=0.25):
+    """Coordinates on a coarse grid (multiples of ``scale``): every
+    difference, square and sum is exact in float32, so distances tie often
+    and any two exact evaluations agree bit for bit."""
+    return (rng.integers(0, steps, size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [33, 64, 257])
+@pytest.mark.parametrize("metric", ["l2", "l1", "linf"])
+def test_plain_wide_k_bitwise_equals_pallas_on_ties(k, metric):
+    """k > 32 (the warp list's KPL > 1 on the card): the plain version
+    against the Pallas kernel (interpret mode, as tests/test_kernels.py runs
+    it here) on quantised points over two of its point tiles, where nearly
+    every distance ties.  Exact arithmetic makes the values bitwise, so the
+    lowest-index-first order is compared slot by slot, with self ids and a
+    radius count."""
+    from repro.kernels.ops import pairwise_topk as jax_pairwise_topk
+
+    rng = np.random.default_rng(k + len(metric))
+    p = _quantised(rng, (700, 3))
+    ids = rng.choice(700, 24, replace=False).astype(np.int32)
+    q = p[ids]
+    q[::3] += np.float32(0.125)  # exact too; not the self points
+    radius = 0.5
+    got = pairwise_topk(q, p, k, radius=radius, query_ids=ids, metric=metric)
+    want = jax_pairwise_topk(q, p, k, radius=radius, query_ids=ids,
+                             metric=metric)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert not (got[1].numpy() == ids[:, None]).any()
 
 
 @pytest.mark.parametrize("metric,d", [
@@ -194,9 +226,11 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q = torch.zeros((2, 3))
     with pytest.raises(ValueError):
         pairwise_topk_cuda(q, torch.zeros(2, dtype=torch.int32), q, 1.0, k=1)
-    before = launch_counts()["pairwise_topk"]
+    before = launch_counts()["pairwise_topk"], WIDE_LAUNCHES["pairwise_topk"]
     pairwise_topk(q, q, 1)  # CPU tensors: the plain version, no launch
-    assert launch_counts()["pairwise_topk"] == before
+    pairwise_topk(q, q, 40)
+    assert (launch_counts()["pairwise_topk"],
+            WIDE_LAUNCHES["pairwise_topk"]) == before
 
 
 # -- on the card: the CUDA kernel against its plain version ----------------
@@ -253,7 +287,7 @@ def test_cuda_kernel_matches_plain(d, metric, k, radius, selfids):
 @pytest.mark.parametrize("d,k", [(3, 9), (12, 9), (12, 40), (20, 5)])
 def test_cuda_l2diff_matches_plain(d, k):
     """The diff-form L2 selector on the card: bitwise the plain version at
-    every d (the warp path for k <= 32, the thread path above), masked
+    every d (one list entry a lane for k <= 32, two at k = 40), masked
     rows untouched."""
     rng = np.random.default_rng(d * k)
     dev = torch.device("cuda")
@@ -367,12 +401,46 @@ def test_merge_keeps_lowest_index_on_cross_range_ties():
     assert (d == 2.0).all() and c.item() == 50
 
 
+@pytest.mark.parametrize("ranges", [64, 528])
+def test_merge_of_many_ranges_equals_unsplit(ranges):
+    """The shape the warp-a-row merge serves: one query, k = 256, its points
+    cut into S >= 64 ranges (528 = 4 blocks on each of 132 SMs, as
+    ``choose_splits`` fans a single-row call out), most ranges shorter than
+    k, tie-heavy quantised points with duplicates at every boundary.  The
+    merged lists are the unsplit plain version's bitwise."""
+    rng = np.random.default_rng(ranges)
+    n, k = 30 * ranges + 17, 256
+    p = _quantised(rng, (n, 3), steps=8)
+    bounds = tuple(np.linspace(0, n, ranges + 1).astype(int))
+    for b in bounds[1:-1]:
+        p[b - 1] = p[0]
+        p[b] = p[0]
+    p = torch.from_numpy(p)
+    q = p[:1].clone()
+    qid = torch.tensor([n], dtype=torch.int32)
+    want = pairwise_topk_ref(q, p, k, radius2=0.25, query_ids=qid)
+    part = _split_topk(q, p, k, bounds, thr=0.25, qid=qid)
+    assert part[0].shape[0] == ranges
+    got = merge_partial_topk(*part, k, n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("nq,n,k,per_block", [
-    # per_block: the first pass's rows a block (16 for L2 at d = 2, 3 and
-    # k <= 32, 4 for the other forms, 128 for k > 32)
+    # per_block: the first pass's rows a block (four warps of 4, 2 or 1
+    # queries: 16 for L2 at d = 2, 3 and k <= 256, 8 at k <= 512, 4 at
+    # k > 512 and for the other forms; 128 was the first port's one thread
+    # a query at k > 32)
     (100, 1 << 20, 5, 16), (4096, 1 << 20, 32, 16), (512, 1 << 20, 300, 128),
     (777, 5000, 8, 4), (1, 3, 1, 16), (1 << 20, 1 << 20, 8, 16),
     (4096, 1 << 20, 4096, 128), (512, 1 << 16, 64, 128),
+    (512, 1 << 20, 300, 8), (512, 1 << 16, 64, 16),
+    # k > 32 on the warp list: a single-row request and eight rows fan out
+    # to hundreds of ranges; the escalation slot (L1, 4005 rows) and a
+    # k = 1024 self-query fill the card with S = 1
+    (1, 1 << 20, 256, 16), (8, 1 << 20, 256, 16), (4096, 1 << 17, 128, 4),
+    (4096, 1 << 20, 1024, 4), (4096, 1 << 20, 128, 16),
+    (4096, 1 << 20, 4096, 4), (512, 1 << 20, 1100, 4),
 ])
 def test_choose_splits_covers_the_points(nq, n, k, per_block):
     """Ranges tile [0, N) with none empty; the sampler's call fans out to
@@ -388,6 +456,8 @@ def test_choose_splits_covers_the_points(nq, n, k, per_block):
         assert tiles * s >= 4 * sms
     if tiles >= 4 * sms:
         assert s == 1
+    if nq <= 8 and k == 256:
+        assert s >= 100  # the merge of hundreds of lists a row
 
 
 @needs_card
@@ -424,3 +494,97 @@ def test_cuda_split_kernel_matches_plain(nq, n, k, thr):
     torch.cuda.synchronize()
     for o in out:
         assert (o == -1).all()
+
+
+# -- on the card: k > 32, the warp list and the merge of many ranges --------
+
+WIDE_FORMS = [(3, "l2"), (2, "l2"), (3, "l1"), (3, "linf"), (5, "l1"),
+              (16, "l2"), (12, "l2diff")]
+
+
+@needs_card
+@pytest.mark.parametrize("k", [33, 64, 128, 256, 1024, 1100, 3000])
+@pytest.mark.parametrize("d,metric", WIDE_FORMS)
+def test_cuda_wide_k_matches_plain(d, metric, k):
+    """Every register-list size (32 * KPL = 64 ... 1024) and the row list
+    above it, in every distance form, against the plain version on
+    the card, bitwise: quantised points (exact distances, so the identity
+    form at d = 16 is exact too) with 40 copies of one point, which tie
+    inside a 32-point chunk and across chunks, on the split path; self
+    ids; a row_mask whose other rows stay untouched."""
+    from repro_torch.kernels.pairwise_topk import split_plan
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k * 31 + d)
+    n, nq = 6000, 300
+    p = _quantised(rng, (n, d), steps=8)
+    p[1000:1040] = p[7]
+    p = torch.from_numpy(p).to(dev)
+    qid = torch.arange(0, 2 * nq, 2, dtype=torch.int32, device=dev)
+    q = p[qid.long()].contiguous()
+    q[1] = p[7]
+    mask = (torch.arange(nq, device=dev) % 5 != 2).to(torch.uint8)
+    thr = 0.25 * d
+    assert split_plan(nq, n, d, k, metric, dev)[0] > 1
+    wide = WIDE_LAUNCHES["pairwise_topk"]
+    outs = []
+    for kernel in (True, False):
+        out = (torch.full((nq, k), -1.0, device=dev),
+               torch.full((nq, k), -1, dtype=torch.int32, device=dev),
+               torch.full((nq,), -1, dtype=torch.int32, device=dev))
+        if kernel:
+            topk_engine(q, qid, p, thr, k=k, metric=metric, row_mask=mask,
+                        out=out)
+        else:
+            pairwise_topk_ref(q, p, k, radius2=thr, query_ids=qid,
+                              metric=metric, row_mask=mask, out=out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert (outs[0][2][mask == 0] == -1).all()
+    assert WIDE_LAUNCHES["pairwise_topk"] == wide + 1  # counted apart
+
+
+@needs_card
+@pytest.mark.parametrize("nq", [1, 8])
+def test_cuda_many_range_merge_matches_plain(nq):
+    """A single-row and an eight-row call at k = 256 on 2^20 points, which
+    the split fans out to hundreds of ranges: the whole call, and the merge
+    kernel alone on the first pass's partial lists, also
+    under a row_mask, against the plain versions, bitwise, with duplicates
+    across the kernel's own range bounds."""
+    from repro_torch.kernels.build import extension
+    from repro_torch.kernels.pairwise_topk import split_plan
+
+    dev = torch.device("cuda")
+    n, k = 1 << 20, 256
+    rng = np.random.default_rng(nq)
+    p = rng.normal(size=(n, 3)).astype(np.float32)
+    s, span = split_plan(nq, n, 3, k, "l2", dev)
+    assert s >= 100
+    for b in range(span, n, span):
+        p[b - 1] = p[0]
+        p[b] = p[0]
+    p = torch.from_numpy(p).to(dev)
+    q = p[:nq].clone()
+    qid = torch.full((nq,), n, dtype=torch.int32, device=dev)
+    got = pairwise_topk_cuda(q, qid, p, 0.01, k=k)
+    want = pairwise_topk_ref(q, p, k, radius2=0.01, query_ids=qid)
+    part = (torch.empty((s, nq, k), device=dev),
+            torch.empty((s, nq, k), dtype=torch.int32, device=dev),
+            torch.empty((s, nq), dtype=torch.int32, device=dev))
+    extension().pairwise_topk(q, qid, p, None, k, s, span, 0.01, 0, *part)
+    merged = tuple(torch.empty_like(t) for t in got)
+    extension().pairwise_topk_merge(*part, None, n, *merged)
+    plain = merge_partial_topk(*part, k, n)
+    # a row_mask: the other rows' outputs stay as they were
+    mask = (torch.arange(nq, device=dev) % 3 != 1).to(torch.uint8)
+    masked = [tuple(torch.full_like(t, -1) for t in got) for _ in range(2)]
+    extension().pairwise_topk_merge(*part, mask, n, *masked[0])
+    merge_partial_topk(*part, k, n, row_mask=mask, out=masked[1])
+    torch.cuda.synchronize()
+    for g, w, m, pm, a, b in zip(got, want, merged, plain, *masked):
+        assert torch.equal(g, w)
+        assert torch.equal(m, pm)
+        assert torch.equal(a, b)
