@@ -36,7 +36,13 @@ comes out:
    coarse, shared-memory design: d2, idx, found, n_tests bitwise; then
    fused mode on the heaviest grid with a partly cleared ``unres`` mask,
    once with the rows as drawn and once out of cell order: also
-   ``unres``, ``res_round`` and ``executed`` bitwise;
+   ``unres``, ``res_round`` and ``executed`` bitwise; then the fused
+   loop's few-row rounds on that grid (every row of the cloud in the call,
+   1 and 206 of them unresolved), where the kernel splits each active tile
+   S ways across the card and merges: every output and flag bitwise
+   against the plain version, T = 1 and S > 1 as the launch reports them,
+   timed (the split pass and the merge apart, from a profiler trace)
+   beside its bound;
 4. main path: ``build_index(kitti 2^20, backend="trueknn")`` and two
    self-query ``KnnSpec(8)`` batches (sampled, then warm), with 4096 rows
    checked against the brute backend;
@@ -55,7 +61,12 @@ comes out:
 8. ``grid_round``'s two designs timed on every scheduled grid of kitti,
    porto, road and uniform (the fused loop's rounds, and every row on
    the grids between fine and collapsed), held bitwise equal to each
-   other, against the design the wrapper picks;
+   other, against the design the wrapper picks; each round's active rows,
+   and the tiles T and splits S the launch reports (``plan``), printed (S =
+   1 on a coarse round over all 2^20 rows, S > 1 on one of at most 256
+   rows, both checked), and every split round held
+   bitwise against the same round at S = 1 and, on at most 1024 rows,
+   against the plain version;
 9. ``build_index(kitti 2^20, backend="fixed_radius", radius=r)`` with r
    phase 4's median 8th-NN distance: two ``HybridSpec(8, r)`` self-query
    batches (the second on the cached grid), ``KnnSpec(8)`` at the cfg
@@ -72,7 +83,10 @@ comes out:
    r on trueknn and on fixed_radius (offsets and distances bitwise equal,
    indices equal up to the order of neighbors at equal distance, which
    follows each backend's grid), the
-   counted range's two rounds timed at full width, ``build_knn_graph`` and
+   counted range's rounds timed at full width (k = 32, its second round's
+   k and 1024; past 32 both designs, the coarse and the fine, equal
+   bitwise to each other and, on 64 rows, to the plain version),
+   ``build_knn_graph`` and
    ``dbscan`` (the union-find's host seconds apart from the device part);
 12. ``build_index(kitti 2^22, backend="distributed")`` on a ``DeviceMesh``
    whose model axis holds the one card at 4 positions (2^20 points a
@@ -199,9 +213,11 @@ just after; a kernel of that path that was not launched fails the run.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -222,6 +238,9 @@ N_WIDE = 1 << 16  # d = 16 cloud for the matmul-identity form
 ROWS = 4096
 GRID_ROWS = 16384
 DEGEN_ROWS = 2048  # 8 blocks of the coarse design at k = 8
+#: phase 3: the fused loop's few-row rounds on kitti's collapsed grid (the
+#: rows unresolved in batch 2's last two coarse rounds, PERF.md)
+FEW_ROWS = (1, 206)
 #: k > 32: each register-list size of pairwise_topk (32 * KPL = 64 ...
 #: 1024 entries, k = 33 the smallest past one entry a lane) and one k above
 #: the largest, which keeps its list in its workspace row
@@ -229,7 +248,9 @@ WIDE_KS = (33, 64, 128, 256, 1024, 1100)
 WIDE_ROWS = 512  # phase 2's rows a k > 32 case
 SEED = 0
 FINE_TEST_BUDGET = 1 << 36  # most tests phase 8 gives the fine design
+PLAIN_ROWS = 1024  # phase 8: split rounds on at most this many rows vs plain
 CHUNK_ROWS = 1 << 18  # phase 11's chunked all-pairs: 4 blocks of the cloud
+COUNTED_ROWS = 64  # phase 11: rows of the k > 32 counted rounds held plain
 P_MESH = 4  # phases 12-13: model positions, 2^20 points each
 MESH_ROUNDS = 24  # configs/trueknn.py: max_rounds
 DIST_ROWS = 1 << 16  # configs/trueknn.py: n_queries = 1 << 16
@@ -275,15 +296,38 @@ def shape_row(shape, ms, plain_ms, b, **extra):
             "bound_by": b[1], **extra}
 
 
-#: the launch counts' key for pairwise_topk's launches at k > 32
+#: the launch counts' keys for each kernel's launches at k > 32
 WIDE = "pairwise_topk k>32"
+GWIDE = "grid_round k>32"
 
 
 def launch_counts():
-    """The kernels' launch counts, and pairwise_topk's at k > 32 apart."""
+    """The kernels' launch counts, and each kernel's at k > 32 apart."""
     from repro_torch.kernels import build
 
-    return {**build.launch_counts(), WIDE: build.WIDE_LAUNCHES["pairwise_topk"]}
+    wide = build.WIDE_LAUNCHES
+    return {**build.launch_counts(), WIDE: wide["pairwise_topk"],
+            GWIDE: wide["grid_round"]}
+
+
+def kernel_ms(fn, names):
+    """Device ms of the kernels whose demangled names match each regular
+    expression of ``names`` in one call of ``fn`` (a ``torch.profiler``
+    trace); None for a pattern the trace shows no device time for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", None)
+              or getattr(ev, "cuda_time_total", 0))
+        for name in names:
+            if re.search(name, ev.key) and us:
+                got[name] = got.get(name, 0.0) + us / 1e3
+    return {name: got.get(name) for name in names}
 
 
 def bound(bytes_moved, flops):
@@ -575,7 +619,99 @@ def phase_grid(dev, kitti_np, rng):
             f"n_tests={res[0][3].item()}, resolved "
             f"{int((res[0][5] == heaviest).sum())}")
     heavy = (sched.grids[heaviest], sched.radii[heaviest], heaviest)
-    return (sched, pts), worst, heavy
+    few = few_row_rounds(dev, pts, grid, r2, heaviest, k)
+    return (sched, pts), worst, heavy, few
+
+
+def few_row_rounds(dev, pts, grid, r2, t, k):
+    """The fused loop's few-row rounds on the heaviest grid as the main
+    path runs them: every row of the cloud in the call, ``FEW_ROWS`` of
+    them unresolved (a seeded draw), so the kernel splits each active tile
+    across the card.  Each held bitwise against the plain version (every
+    output and flag), then timed on fresh state (the wrapper's cell sort
+    included), and once under the profiler for the split pass (the split
+    instantiation alone) and the merge apart, with the (T, S) the launch
+    reports.  Returns the kernels-line rows."""
+    import torch
+
+    from repro_torch.core.fixed_radius import (
+        _launch,
+        coarse_design,
+        grid_round,
+        grid_round_plain,
+    )
+
+    n, d = pts.shape
+    check(coarse_design(grid), "few-row rounds: the grid is not coarse")
+    qid = torch.arange(n, dtype=torch.int32, device=dev)
+    pick = torch.as_tensor(np.random.default_rng(21).choice(
+        n, max(FEW_ROWS), replace=False), device=dev)
+    split_re = r"grid_round_tiled_kernel<.*true>"
+    names = ("d2", "idx", "found", "n_tests", "unres", "res_round",
+             "executed")
+    rows_out = []
+    for m in FEW_ROWS:
+        unres0 = torch.zeros(n, dtype=torch.uint8, device=dev)
+        unres0[pick[:m]] = 1
+
+        def call(fn):
+            st = [torch.full((n, k), -1.0, device=dev),
+                  torch.full((n, k), -1, dtype=torch.int32, device=dev),
+                  torch.full((n,), -1, dtype=torch.int32, device=dev),
+                  torch.zeros(1, dtype=torch.int64, device=dev),
+                  unres0.clone(),
+                  torch.full((n,), -1, dtype=torch.int32, device=dev),
+                  torch.zeros(1, dtype=torch.int32, device=dev)]
+            torch.cuda.synchronize()
+            go = lambda: fn(pts, grid, pts, qid, r2, k,  # noqa: E731
+                            out=tuple(st[:3]), tests=st[3], unres=st[4],
+                            res_round=st[5], t=t, executed=st[6])
+            return st, go
+
+        got, go = call(grid_round)
+        go()
+        want, go_p = call(grid_round_plain)
+        t0 = time.perf_counter()
+        go_p()
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        for x, y, name in zip(got, want, names):
+            check(torch.equal(x, y), f"few-row round ({m} rows): {name} "
+                  f"differs")
+        n_tests = int(got[3].item())
+        times = []
+        for _ in range(3):
+            _, go = call(grid_round)
+            times.append(_events_ms(go))
+        ms = statistics.median(times)
+        # the wrapper's launch (the grid is coarse), with the plan read back
+        plan = torch.full((2,), -1, dtype=torch.int32, device=dev)
+        _, go = call(functools.partial(_launch, tiled=True, plan=plan))
+        split = kernel_ms(go, (split_re, "grid_round_merge_kernel"))
+        tiles, s = plan.tolist()
+        check(tiles == 1 and s > 1, f"few-row round ({m} rows): T={tiles} "
+              f"S={s}, not split")
+        # the rows' flags are read across the call (unres, nq bytes); the
+        # candidates they test once each (slot, cell coords, point); each
+        # row's query, id and outputs
+        b = bound(n + min(n_tests, n) * (4 + 8 * d)
+                  + m * (d * 4 + 4 + k * 8 + 4 + 4 + 1), n_tests * 3 * d)
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.3f} ms"
+
+        log(f"  grid_round fused few-row t={t} rows={m} of {n} "
+            f"res={grid.res} cap={grid.cap} T={tiles} S={s} "
+            f"n_tests={n_tests}: bitwise equal to the plain version "
+            f"({', '.join(names)}); kernel {ms:.3f} ms (split pass "
+            f"{fmt(split[split_re])}, merge "
+            f"{fmt(split['grid_round_merge_kernel'])}), plain {p_ms:.3f} ms,"
+            f" bound {b[0]:.6f} ms ({b[1]})")
+        rows_out.append(shape_row(
+            f"fused few-row round rows={m} of Q=2^20 k={k} res={grid.res} "
+            f"cap={grid.cap}", ms, p_ms, b, n_tests=n_tests, tiles=tiles,
+            splits=s, split_pass_ms=split[split_re],
+            merge_ms=split["grid_round_merge_kernel"]))
+    return rows_out
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -932,13 +1068,16 @@ def _events_ms(fn):
 def _design_ms(pts, grid, r2, state, tiled):
     """Median time of one launch of one design on fresh copies of
     ``state`` (d2, idx, found and, fused, unres and res_round; the cell-key
-    sort of the coarse design included), and the state it leaves."""
+    sort of the coarse design included), the state it leaves and, coarse,
+    the (T, S) the launch reports (else None)."""
     import torch
 
     from repro_torch.core.fixed_radius import _launch
 
     n, k = state[0].shape
     qid = torch.arange(n, dtype=torch.int32, device=pts.device)
+    plan = (torch.full((2,), -1, dtype=torch.int32, device=pts.device)
+            if tiled else None)
     times, st = [], None
     for _ in range(3):
         st = [x.clone() for x in state] + [
@@ -950,10 +1089,37 @@ def _design_ms(pts, grid, r2, state, tiled):
             pts, grid, pts, qid, r2, k, tiled, out=tuple(st[:3]),
             tests=st[-2], unres=st[3] if fused else None,
             res_round=st[4] if fused else None, t=0,
-            executed=st[-1] if fused else None)))
+            executed=st[-1] if fused else None, plan=plan)))
         if times[-1] > 200.0:
             break
-    return statistics.median(times), st
+    return (statistics.median(times), st,
+            tuple(plan.tolist()) if tiled else None)
+
+
+def _round_once(pts, grid, r2, state, plain=False, **kw):
+    """One launch of the coarse design (``kw`` to ``_launch``, such as a
+    forced split) or, with ``plain``, the plain version, on fresh copies of
+    ``state``; the state it leaves, laid out as ``_design_ms``'s."""
+    import torch
+
+    from repro_torch.core.fixed_radius import _launch, grid_round_plain
+
+    n, k = state[0].shape
+    qid = torch.arange(n, dtype=torch.int32, device=pts.device)
+    st = [x.clone() for x in state] + [
+        torch.zeros(1, dtype=torch.int64, device=pts.device),
+        torch.zeros(1, dtype=torch.int32, device=pts.device)]
+    fused = len(state) == 5
+    args = dict(out=tuple(st[:3]), tests=st[-2],
+                unres=st[3] if fused else None,
+                res_round=st[4] if fused else None, t=0,
+                executed=st[-1] if fused else None)
+    if plain:
+        grid_round_plain(pts, grid, pts, qid, r2, k, **args)
+    else:
+        _launch(pts, grid, pts, qid, r2, k, True, **args, **kw)
+    torch.cuda.synchronize()
+    return st
 
 
 def phase_designs(dev, kitti):
@@ -1002,15 +1168,37 @@ def phase_designs(dev, kitti):
                 rows = int(state[3].sum()) if mode == "fused" else n
                 if rows == 0:
                     continue
-                c_ms, c_st = _design_ms(pts, grid, r2, state, True)
+                c_ms, c_st, (tiles, splits) = _design_ms(pts, grid, r2,
+                                                         state, True)
                 n_tests = int(c_st[-2].item())
                 f_ms = None
                 if n_tests <= FINE_TEST_BUDGET:
-                    f_ms, f_st = _design_ms(pts, grid, r2, state, False)
+                    f_ms, f_st, _ = _design_ms(pts, grid, r2, state, False)
                     for x, y in zip(c_st, f_st):
                         check(torch.equal(x, y), f"designs differ: {cloud} "
                               f"t={t} {mode}")
                 pick = coarse_design(grid)
+                # (T, S) as the coarse launch reports them: a round over all
+                # 2^20 rows fills the card unsplit; one on a few hundred
+                # rows is split
+                if pick and rows == N_MAIN:
+                    check(splits == 1, f"{cloud} t={t}: every-row round split")
+                if pick and rows <= 256:
+                    check(splits > 1,
+                          f"{cloud} t={t}: few-row round not split")
+                held = ""
+                if splits > 1:
+                    # the split round against the unsplit one (S forced to
+                    # 1) and, on few rows, against the plain version
+                    refs = {"S=1": _round_once(pts, grid, r2, state, splits=1)}
+                    if rows <= PLAIN_ROWS:
+                        refs["plain"] = _round_once(pts, grid, r2, state,
+                                                    plain=True)
+                    for name, ref in refs.items():
+                        for x, y in zip(c_st, ref):
+                            check(torch.equal(x, y), f"{cloud} t={t} {mode}: "
+                                  f"the split round differs from {name}")
+                    held = f" (bitwise equal to {' and '.join(refs)})"
                 if f_ms is not None:
                     acc = tot[mode]
                     for j, v in enumerate((c_ms if pick else f_ms,
@@ -1020,7 +1208,8 @@ def phase_designs(dev, kitti):
                 log(f"  {cloud} t={t} {mode}: rows={rows} res={grid.res} "
                     f"cap={grid.cap} H={grid.table_size} "
                     f"slots={stencil_slots(grid):.6g} n_tests={n_tests}: "
-                    f"coarse {c_ms:.3f} ms, fine {fine}; the wrapper takes "
+                    f"coarse (T={tiles} S={splits}{held}) {c_ms:.3f} ms, "
+                    f"fine {fine}; the wrapper takes "
                     f"{'coarse' if pick else 'fine'}")
                 if mode == "fused":
                     fused = c_st[:5]
@@ -1237,7 +1426,7 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
     import torch
 
     from repro_torch import AllPairsSpec
-    from repro_torch.core.fixed_radius import grid_round
+    from repro_torch.core.fixed_radius import _launch, grid_round_plain
     from repro_torch.workloads import build_knn_graph, dbscan
 
     whole, wall, counts = counted(
@@ -1281,34 +1470,76 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
         f"distance come in the order of each backend's grid (equal once "
         f"each row is ordered by (dist, idx))")
 
-    # the counted range's two rounds alone, at full width (k > 32 keeps
-    # its lists in the output rows)
+    # the counted range's rounds alone, at full width: its first round
+    # (k = 32), its second (the next power of two of the fullest ball) and
+    # k = 1024, the largest register list; past k = 32 both designs (the
+    # wrapper's coarse one and the fine one, a warp a query), held bitwise
+    # equal to each other at full width and to the plain version on
+    # COUNTED_ROWS rows
     pts = fr_index._pts_t
     n, d = pts.shape
     grid, _ = fr_index._grid_for(radius)
     qid = torch.arange(n, dtype=torch.int32, device=dev)
     r2 = float(np.float32(radius) ** 2)
     rounds = []
-    for k in (32, counted_k(csr["fixed_radius"])):
-        out = (torch.empty((n, k), device=dev),
-               torch.empty((n, k), dtype=torch.int32, device=dev),
-               torch.empty((n,), dtype=torch.int32, device=dev))
-        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+    names = ("d2", "idx", "found", "n_tests")
+    for k in sorted({32, counted_k(csr["fixed_radius"]), 1024}):
+        outs = {}
+        for design in (("coarse", "fine") if k > 32 else ("coarse",)):
+            out = (torch.empty((n, k), device=dev),
+                   torch.empty((n, k), dtype=torch.int32, device=dev),
+                   torch.empty((n,), dtype=torch.int32, device=dev))
+            tests = torch.zeros(1, dtype=torch.int64, device=dev)
 
-        def run():
-            tests.zero_()
-            grid_round(pts, grid, pts, qid, r2, k, out=out, tests=tests)
+            def run(out=out, tests=tests, tiled=design == "coarse"):
+                tests.zero_()
+                _launch(pts, grid, pts, qid, r2, k, tiled, out=out,
+                        tests=tests)
 
-        ms = median_ms(run, 3, torch.cuda.synchronize, warmup=False)
-        n_tests = int(tests.item())
-        b = bound(n * d * 4 + grid.table_size * grid.cap * 4
-                  + (n + 1) * d * 4 + n * 4 + n * k * 8 + n * 4,
-                  n_tests * 3 * d)
-        rounds.append((k, ms, b, n_tests))
-        log(f"  counted range round k={k} Q={n} res={grid.res} cap="
-            f"{grid.cap} n_tests={n_tests}: kernel {ms:.3f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]})")
-        del out
+            first = median_ms(run, 1, torch.cuda.synchronize, warmup=False)
+            ms = first if first > 2000.0 or design == "fine" else median_ms(
+                run, 3, torch.cuda.synchronize, warmup=False)
+            outs[design] = (*out, tests)
+            n_tests = int(tests.item())
+            b = bound(n * d * 4 + grid.table_size * grid.cap * 4
+                      + (n + 1) * d * 4 + n * 4 + n * k * 8 + n * 4,
+                      n_tests * 3 * d)
+            held = ""
+            if k > 32:
+                # the design on the first rows alone, against the plain
+                # version and against the same rows of the full-width call
+                sub = slice(0, COUNTED_ROWS)
+                qs, qi = pts[sub].contiguous(), qid[sub].contiguous()
+                runs = []
+                for fn in (lambda **kw: _launch(pts, grid, qs, qi, r2, k,
+                                                design == "coarse", **kw),
+                           lambda **kw: grid_round_plain(pts, grid, qs, qi,
+                                                         r2, k, **kw)):
+                    o = tuple(torch.empty_like(x[sub]) for x in out)
+                    tt = torch.zeros(1, dtype=torch.int64, device=dev)
+                    fn(out=o, tests=tt)
+                    runs.append((*o, tt))
+                torch.cuda.synchronize()
+                for x, y, z, name in zip(*runs, [x[sub] for x in out] + [None],
+                                         names):
+                    check(torch.equal(x, y), f"counted range k={k} {design}:"
+                          f" {name} differs from the plain version")
+                    check(z is None or torch.equal(x, z), f"counted range "
+                          f"k={k} {design}: {name} differs at full width")
+                held = (f"; rows 0-{COUNTED_ROWS - 1} bitwise equal to the "
+                        f"plain version")
+            rounds.append((k, design, ms, b, n_tests))
+            log(f"  counted range round k={k} {design} Q={n} res={grid.res} "
+                f"cap={grid.cap} n_tests={n_tests}: kernel {ms:.3f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]}){held}")
+        if "fine" in outs:
+            for x, y, name in zip(outs["coarse"], outs["fine"], names):
+                check(torch.equal(x, y), f"counted range k={k}: the designs' "
+                      f"{name} differ")
+            log(f"  counted range round k={k}: both designs bitwise equal at "
+                f"full width")
+        del outs
+        torch.cuda.empty_cache()
 
     graph, graph_s, counts = counted(
         "knn graph", lambda: build_knn_graph(tk_index, 8), tally)
@@ -1972,10 +2203,11 @@ class HostReads:
         return False
 
 
-def same_rows(tag, results, direct):
+def same_rows(tag, results, direct, found=True):
     """Tickets of consecutive row blocks against one direct query of all
-    the rows: kNN distances, indices and found (where the direct answer
-    has it), or the range CSR's counts, indices and distances, bitwise."""
+    the rows: kNN distances, indices and (unless ``found`` is False) found
+    where the direct answer has it, or the range CSR's counts, indices and
+    distances, bitwise."""
     if hasattr(direct, "offsets"):
         counts = np.concatenate([r.counts for r in results])
         check(np.array_equal(counts, direct.counts), f"{tag}: range counts")
@@ -1987,7 +2219,7 @@ def same_rows(tag, results, direct):
     for key in ("dists", "idxs"):
         got = np.vstack([getattr(r, key) for r in results])
         check(np.array_equal(got, getattr(direct, key)), f"{tag}: {key}")
-    if direct.found is not None:
+    if found and direct.found is not None:
         got = np.concatenate([r.found for r in results])
         check(np.array_equal(got, direct.found), f"{tag}: found")
 
@@ -2034,17 +2266,49 @@ def phase_server(dev, kitti_np, lidar, placed, mut, range5, radius, graph11,
                     "fabric_syncs": fabric_syncs() - s0}
         return res, wall, counts, reads.n
 
-    # (a) the open loop on its own server, so its bucket is its own
+    # (a) the open loop on its own server, so its bucket is its own.  The
+    # batches it forms follow the arrival times, and each batch starts at
+    # the warm radius that the batches before it left (an EMA of their
+    # resolved radii), so a row's found (its count at the round it
+    # resolved in) depends on its batch; each batch the server runs is
+    # recorded to hold found against a direct query from the same start
     solo = NeighborServer(indexes={"lidar": lidar}, max_batch=SERVE_BATCH,
                           cache_size=0)
+    served = []  # (rows, result) of each batch the server ran
+    plan_for = solo._plan_for
+
+    def recording_plan_for(*a, **kw):
+        plan = plan_for(*a, **kw)
+
+        def run(rows):
+            res = plan(rows)
+            served.append((np.array(rows, copy=True), res))
+            return res
+        return run
+
+    solo._plan_for = recording_plan_for
     (results, wall_a, lat), wall, counts, reads = drive(
         "open loop", lambda: poisson_open_loop(
             solo, q5, KnnSpec(8), SERVE_RATE, np.random.default_rng(17),
             index="lidar", timeout=600.0),
         ("grid_round",))
+    del solo._plan_for
     check(len(results) == ROWS, f"open loop served {len(results)} of {ROWS}")
     direct = lidar.query(q5, KnnSpec(8))
-    same_rows("open loop vs direct", results, direct)
+    same_rows("open loop vs direct", results, direct, found=False)
+    found_of = {}  # a row's coordinates -> the found its batches gave it
+    for rows, res in served:
+        again = lidar.query(rows, KnnSpec(8, start_radius=res.start_radius))
+        for key in ("dists", "idxs", "found"):
+            check(np.array_equal(getattr(res, key), getattr(again, key)),
+                  f"open loop batch vs a direct query from its start radius:"
+                  f" {key}")
+        for row, f in zip(rows, res.found):
+            found_of.setdefault(row.tobytes(), set()).add(int(f))
+    for row, r in zip(q5, results):
+        check(int(r.found[0]) in found_of[np.float32(row).tobytes()],
+              "open loop ticket's found vs its batch's row")
+    starts = sorted({float(res.start_radius) for _, res in served})
     st = solo.stats()
     b = st["buckets"]["lidar/knn/k=8/l2"]
     check(st["submitted"] == st["served"] == ROWS and st["rejected"] == 0,
@@ -2058,8 +2322,10 @@ def phase_server(dev, kitti_np, lidar, placed, mut, range5, radius, graph11,
     log(f"  (a) {ROWS} single-row KnnSpec(8) requests on 'lidar' offered at "
         f"{SERVE_RATE:.0f}/s: served {ROWS} in {wall_a:.4f}s "
         f"({ROWS / wall_a:.1f} requests/s), each ticket bitwise equal to a "
-        f"direct query of its row (distances, indices); launches {counts}, "
-        f"host reads {reads}")
+        f"direct query of its row (distances, indices) and its found to "
+        f"its batch's, each of the {len(served)} batches bitwise equal to a "
+        f"direct query from its start radius (start radii {starts}); "
+        f"launches {counts}, host reads {reads}")
     log(bucket_line("lidar/knn/k=8/l2", b))
 
     # (b)-(d) the three tenants on one server
@@ -3695,7 +3961,7 @@ def main() -> int:
     log("phase 2: pairwise_topk kernel vs plain version")
     pw_err = phase_pairwise(dev, kitti, porto, rng)
     log("phase 3: grid_round kernel vs plain version")
-    kitti_sched, grid_err, heavy = phase_grid(dev, kitti_np, rng)
+    kitti_sched, grid_err, heavy, few_rows = phase_grid(dev, kitti_np, rng)
     log(f"  (schedule of {len(kitti_sched[0].radii)} rounds)")
     log("phase 4: main path, trueknn KnnSpec(8) self-query on kitti 2^20")
     index, (b1, b2), main_counts, radius = phase_main(dev, kitti_np, rng)
@@ -3710,7 +3976,7 @@ def main() -> int:
     log("phase 8: grid_round's two designs on every scheduled grid")
     sweep = phase_designs(dev, kitti_sched)
     del kitti_sched
-    tally = {"pairwise_topk": 0, "grid_round": 0, WIDE: 0}
+    tally = {"pairwise_topk": 0, "grid_round": 0, WIDE: 0, GWIDE: 0}
     log(f"phase 9: fixed_radius on kitti 2^20 at r = {radius:.6g}")
     fr_index = phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally)
     log("phase 10: generic routes on 4096 rows")
@@ -3824,6 +4090,15 @@ def main() -> int:
             "replaces": "src/repro/core/fixed_radius.py:36",
             "launches": main_counts["grid_round"]
             + range_counts["grid_round"] + tally["grid_round"],
+            "launches_k_above_32": main_counts[GWIDE] + range_counts[GWIDE]
+            + tally[GWIDE],
+            # one launch runs the round's pass and, on a coarse grid, the
+            # merge of its splits (which returns at once when S = 1)
+            "passes": ["grid_round_kernel (fine, k <= 32)",
+                       "grid_round_fine_warp_kernel (fine, k > 32)",
+                       "grid_round_tiled_kernel (coarse, k <= 32)",
+                       "grid_round_warp_kernel (coarse, k > 32)",
+                       "grid_round_merge_kernel (coarse, S > 1)"],
             "max_abs_err": grid_err,
             "ms": g_k,
             "plain_ms": g_p,
@@ -3840,10 +4115,10 @@ def main() -> int:
                 shape_row(f"heaviest round t={heavy[2]} Q=2^20 k=8 "
                           f"res={heavy[0].res} cap={heavy[0].cap}",
                           *heavy_t[:3], n_tests=heavy_t[3]),
-            ] + [
-                shape_row(f"counted range round Q=2^20 k={k}", ms, None, b,
-                          n_tests=nt)
-                for k, ms, b, nt in range_rounds
+            ] + few_rows + [
+                shape_row(f"counted range round Q=2^20 k={k} {design}", ms,
+                          None, b, n_tests=nt)
+                for k, design, ms, b, nt in range_rounds
             ],
         },
     ]

@@ -11,8 +11,7 @@ At each shape it runs the first pass and the merge of both, each with its
 own split (``choose_splits`` over the rows a block that each extension
 reports), checks that the two give the same outputs bitwise, and times
 both passes of each in the order other, this, this, other with CUDA
-events (the median of REPS calls after a warm-up; a pass whose warm-up
-took longer than SLOW_MS is timed once).  The points are kitti 2^20;
+events (``ab_common.median_ms``).  The points are kitti 2^20;
 shapes: the main path's Q = 4096 call at k = 32 (phase 4's radius), the
 Alg. 2 sampler's Q = 100 at k = 5, an L1 call of 4096 rows on 2^17
 points at k = 128 (the placed range escalation's shape), single-row and
@@ -27,40 +26,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
-
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-RADIUS = 0.122349  # chip_smoke.py phase 4: median 8th-NN distance
-N = 1 << 20
-SOURCES = ("binding.cpp", "pairwise_topk.cu", "grid_round.cu")
-REPS = 5
-SLOW_MS = 2000.0
-
-
-def events_ms(fn):
-    """Median CUDA-event time of ``fn`` in ms after one warm-up call (one
-    timed call when the warm-up took longer than SLOW_MS)."""
-    import torch
-
-    def once():
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    if once() > SLOW_MS:
-        return once()
-    return statistics.median(once() for _ in range(REPS))
+from ab_common import N, RADIUS, card_line, median_ms, other_extension
 
 
 def main(argv=None) -> int:
@@ -73,28 +42,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("pairwise_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    from torch.utils.cpp_extension import load
-
     from repro_torch import make_dataset
     from repro_torch.kernels import build
     from repro_torch.kernels.pairwise_topk import METRIC_IDS, choose_splits
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    other_dir = ROOT / "build" / "ab_other"
-    other_dir.mkdir(parents=True, exist_ok=True)
-    exts = {
-        "this": build.extension(),
-        "other": load(
-            name="repro_torch_kernels_other",
-            sources=[str(Path(args.other) / "src" / "repro_torch" / "csrc"
-                         / s) for s in SOURCES],
-            build_directory=str(other_dir), extra_cflags=["-O3"],
-            extra_cuda_cflags=list(build.NVCC_FLAGS), verbose=False),
-    }
+    print(card_line(), flush=True)
+    exts = {"this": build.extension(), "other": other_extension(args.other)}
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     pts = torch.as_tensor(make_dataset("kitti", N), device=dev)
@@ -159,9 +112,10 @@ def main(argv=None) -> int:
         times = {name: {"first_ms": [], "merge_ms": []} for name in runs}
         for name in ("other", "this", "this", "other"):
             r = runs[name]
-            times[name]["first_ms"].append(events_ms(r["first"]))
+            times[name]["first_ms"].append(
+                median_ms(lambda _: r["first"]())[0])
             times[name]["merge_ms"].append(
-                events_ms(r["merge"]) if r["merge"] else 0.0)
+                median_ms(lambda _: r["merge"]())[0] if r["merge"] else 0.0)
         print(json.dumps({
             "shape": tag, "bitwise_equal": same,
             **{name: {"S": runs[name]["S"], **times[name]}

@@ -22,8 +22,21 @@ sorts the query rows by their linear cell key (``cell_keys``; resolved
 rows last in fused mode) on the device, with no host sync, and hands the
 kernel the permutation: a block serves the queries of one cell at a time,
 staging each stencil bucket through shared memory, and still writes each
-row in place.  Below it, each thread walks its own query's stencil in the
-rows' own order.
+row in place.  Below it, each query walks its own stencil in the rows'
+own order.  Both designs keep a list of k <= 32 with one thread (in
+registers, or in shared memory for the coarse design) and a longer one
+with a whole warp (in registers up to k = 1024, in its row above).
+
+A coarse round on few rows is split on the device: the wrapper also
+passes the count of rows that run (``unres.sum`` in fused mode, a device
+op, not a host read) and a workspace of the rows the extension asks for
+(``grid_round_workspace_rows``: sized from the card, never from the
+count).  The kernel derives the active tiles T and a split S (and writes
+them to ``plan`` where a caller passes one), each split walks a
+contiguous share of every pass's stencil slot tiles into the workspace,
+and a merge pass (a warp a row) merges the S partial lists, the earlier
+split first on equal d2: the unsplit order.  ``grid_round_split_plain`` is
+that split and merge in plain PyTorch, in the kernel's order, for any S.
 """
 
 from __future__ import annotations
@@ -35,10 +48,12 @@ import torch
 
 from ..kernels.build import count_launch, extension
 from ..kernels.ops import as_f32
+from ..kernels.ref import merge_partial_topk
 from .grid import Grid, cell_coords_of, hash_coords, stencil_offsets
 
 __all__ = ["fixed_radius_round", "grid_round", "grid_round_plain",
-           "cell_keys", "coarse_design", "stencil_slots", "COARSE_MIN_SLOTS"]
+           "grid_round_split_plain", "cell_keys", "coarse_design",
+           "stencil_slots", "COARSE_MIN_SLOTS"]
 
 #: (rows, 3^d * cap) candidate block per step of the plain version
 _CAND_ELEMS = {"cpu": 1 << 21, "cuda": 1 << 25}
@@ -70,6 +85,60 @@ def _pad_points(points: torch.Tensor) -> torch.Tensor:
     return torch.cat([points, sentinel], 0)
 
 
+def _chunk_scores(points_padded, buckets, point_cells, origin, inv_cell,
+                  res_arr, offs, q, qid, r2: float, *, table_size: int):
+    """The candidate block of one chunk, op for op the reference's: the
+    stencil's bucket contents (``cand``, non-matching slots set to n), their
+    squared distances (NaN as +inf), ``valid`` (matched slots of finite
+    queries), ``within`` (valid, not self, d2 <= r2), and ``live`` (chunk,
+    S, cap): the in-range stencil cells' slots that hold a point."""
+    n = points_padded.shape[0] - 1
+    cap = buckets.shape[1]
+    chunk = q.shape[0]
+    n_cand = offs.shape[0] * cap
+
+    qfin = torch.where(torch.isfinite(q), q, 0.0)  # keep pad-query math finite
+    coords = cell_coords_of(qfin, origin, inv_cell, res_arr)
+    nbr = coords[:, None, :] + offs[None, :, :]  # (chunk, S, d)
+    in_range = torch.all((nbr >= 0) & (nbr < res_arr), dim=-1)  # (chunk, S)
+    h = hash_coords(nbr, table_size)  # (chunk, S)
+    cand = torch.where(in_range[..., None], buckets[h], n)  # (chunk, S, cap)
+    live = cand < n
+    # exact cell-coord match kills hash collisions (and duplicates)
+    ccell = point_cells[cand]  # (chunk, S, cap, d)
+    match = torch.all(ccell == nbr[:, :, None, :], dim=-1)
+    cand = torch.where(match, cand, n).reshape(chunk, n_cand)
+    cpts = points_padded[cand]  # (chunk, n_cand, d)
+    diff = cpts[..., 0] - q[:, None, 0]
+    d2 = diff * diff
+    for a in range(1, q.shape[1]):  # the reference's FMA chain
+        diff = cpts[..., a] - q[:, None, a]
+        d2 = torch.addcmul(d2, diff, diff)
+    d2 = torch.nan_to_num(d2, nan=math.inf, posinf=math.inf)
+    valid = (cand < n) & torch.isfinite(q[:, :1])  # pad queries don't count
+    not_self = cand != qid[:, None]
+    within = valid & not_self & (d2 <= r2)
+    return cand, d2, valid, within, live
+
+
+def _topk_within(cand, d2, within, k: int, n: int):
+    """The k least (d2, position) pairs among the ``within`` candidates,
+    (inf, n) past them, and their count."""
+    chunk, n_cand = cand.shape
+    found = within.sum(-1, dtype=torch.int32)
+    d2m = torch.where(within, d2, math.inf)
+    kk = min(k, n_cand)
+    top_d, arg = torch.sort(d2m, dim=-1, stable=True)
+    top_d, arg = top_d[:, :kk], arg[:, :kk]
+    top_i = torch.gather(cand, 1, arg)
+    top_i = torch.where(torch.isfinite(top_d), top_i, n).to(torch.int32)
+    if kk < k:
+        pad = (chunk, k - kk)
+        top_d = torch.cat([top_d, top_d.new_full(pad, math.inf)], 1)
+        top_i = torch.cat([top_i, top_i.new_full(pad, n)], 1)
+    return top_d, top_i, found
+
+
 def _chunk_candidates(
     points_padded,  # (N+1, d) with +inf sentinel row
     buckets,  # (H, cap)
@@ -92,43 +161,11 @@ def _chunk_candidates(
     Returns ``(top_d2 (chunk, k), top_i (chunk, k), found (chunk,),
     valid (chunk, n_cand))``.
     """
+    cand, d2, valid, within, _ = _chunk_scores(
+        points_padded, buckets, point_cells, origin, inv_cell, res_arr, offs,
+        q, qid, r2, table_size=table_size)
     n = points_padded.shape[0] - 1
-    cap = buckets.shape[1]
-    chunk = q.shape[0]
-    n_cand = offs.shape[0] * cap
-
-    qfin = torch.where(torch.isfinite(q), q, 0.0)  # keep pad-query math finite
-    coords = cell_coords_of(qfin, origin, inv_cell, res_arr)
-    nbr = coords[:, None, :] + offs[None, :, :]  # (chunk, S, d)
-    in_range = torch.all((nbr >= 0) & (nbr < res_arr), dim=-1)  # (chunk, S)
-    h = hash_coords(nbr, table_size)  # (chunk, S)
-    cand = torch.where(in_range[..., None], buckets[h], n)  # (chunk, S, cap)
-    # exact cell-coord match kills hash collisions (and duplicates)
-    ccell = point_cells[cand]  # (chunk, S, cap, d)
-    match = torch.all(ccell == nbr[:, :, None, :], dim=-1)
-    cand = torch.where(match, cand, n).reshape(chunk, n_cand)
-    cpts = points_padded[cand]  # (chunk, n_cand, d)
-    diff = cpts[..., 0] - q[:, None, 0]
-    d2 = diff * diff
-    for a in range(1, q.shape[1]):  # the reference's FMA chain
-        diff = cpts[..., a] - q[:, None, a]
-        d2 = torch.addcmul(d2, diff, diff)
-    d2 = torch.nan_to_num(d2, nan=math.inf, posinf=math.inf)
-    valid = (cand < n) & torch.isfinite(q[:, :1])  # pad queries don't count
-    not_self = cand != qid[:, None]
-    within = valid & not_self & (d2 <= r2)
-    found = within.sum(-1, dtype=torch.int32)
-    d2m = torch.where(within, d2, math.inf)
-    kk = min(k, n_cand)
-    top_d, arg = torch.sort(d2m, dim=-1, stable=True)
-    top_d, arg = top_d[:, :kk], arg[:, :kk]
-    top_i = torch.gather(cand, 1, arg)
-    top_i = torch.where(torch.isfinite(top_d), top_i, n).to(torch.int32)
-    if kk < k:
-        pad = (chunk, k - kk)
-        top_d = torch.cat([top_d, top_d.new_full(pad, math.inf)], 1)
-        top_i = torch.cat([top_i, top_i.new_full(pad, n)], 1)
-    return top_d, top_i, found, valid
+    return (*_topk_within(cand, d2, within, k, n), valid)
 
 
 def cell_keys(q, grid: Grid, unres=None):
@@ -159,6 +196,22 @@ def grid_round_plain(points, grid: Grid, q, qid, r2: float, k: int, *, out,
     and is cleared where a row finds >= k; ``res_round`` (Q,) int32 gets
     ``t`` there; ``executed`` (1,) int32 is set to 1 if any row ran.
     """
+    def rows_of(pts_padded, offs, qr, qi):
+        return _chunk_candidates(
+            pts_padded, grid.buckets, grid.point_cells, grid.origin,
+            grid.inv_cell, grid.res_arr, offs, qr, qi, r2,
+            table_size=grid.table_size, k=k)
+
+    _plain_round(rows_of, points, grid, q, qid, k, out=out, tests=tests,
+                 unres=unres, res_round=res_round, t=t, executed=executed,
+                 chunk=chunk)
+
+
+def _plain_round(rows_of, points, grid: Grid, q, qid, k: int, *, out, tests,
+                 unres, res_round, t: int, executed, chunk: int) -> None:
+    """The plain versions' loop over the rows that run, ``chunk`` at most
+    a step: ``rows_of(points_padded, offs, q_rows, qid_rows)`` gives each
+    step's (d2, idx, found, valid), written back with the fused flags."""
     od, oi, of = out
     rows = (
         torch.arange(q.shape[0], device=q.device)
@@ -175,11 +228,7 @@ def grid_round_plain(points, grid: Grid, q, qid, r2: float, k: int, *, out,
     step = max(1, min(int(chunk), _CAND_ELEMS[q.device.type] // n_cand))
     for i0 in range(0, rows.numel(), step):
         r = rows[i0:i0 + step]
-        top_d, top_i, fnd, valid = _chunk_candidates(
-            pts_padded, grid.buckets, grid.point_cells, grid.origin,
-            grid.inv_cell, grid.res_arr, offs, q[r], qid[r], r2,
-            table_size=grid.table_size, k=k,
-        )
+        top_d, top_i, fnd, valid = rows_of(pts_padded, offs, q[r], qid[r])
         od[r] = top_d
         oi[r] = top_i
         of[r] = fnd
@@ -188,6 +237,60 @@ def grid_round_plain(points, grid: Grid, q, qid, r2: float, k: int, *, out,
             done = r[fnd >= k]
             res_round[done] = t
             unres[done] = 0
+
+
+def _split_of(live, splits: int, tile: int):
+    """(chunk, S, cap) split index of every slot, the kernel's cut: each
+    row's pass walks its in-range stencil cells in order, each bucket's
+    live slots (from slot 0 up to its fill) in tiles of ``tile``; the G
+    tiles of the walk are numbered in order and split s takes [G * s //
+    splits, G * (s + 1) // splits)."""
+    cap = live.shape[-1]
+    tiles = -(-live.sum(-1) // tile)  # (chunk, S): a bucket fills from 0
+    first = torch.cumsum(tiles, -1) - tiles
+    g = first[..., None] + torch.arange(cap, device=live.device) // tile
+    total = tiles.sum(-1)[:, None, None]
+    # the s with G * s // splits <= g; every g < G lies in one split
+    which = torch.zeros_like(g)
+    for s in range(1, splits):
+        which += (g >= total * s // splits).to(g.dtype)
+    return which
+
+
+def grid_round_split_plain(points, grid: Grid, q, qid, r2: float, k: int,
+                           splits: int, *, tile: int, out, tests, unres=None,
+                           res_round=None, t: int = 0, executed=None,
+                           chunk: int = 2048) -> None:
+    """Plain PyTorch version of a coarse round split ``splits`` ways and
+    merged, in the kernel's order (same contract as ``grid_round_plain``,
+    and the same outputs bitwise for every ``splits`` and ``tile``).
+
+    Per row, split s keeps the k least (d2, position) pairs and the
+    in-radius count of the candidates in its share of the stencil walk
+    (``_split_of``, ``tile`` slots a tile: the kernel stages 512 at
+    k <= 32, 1024 above), and ``merge_partial_topk`` merges the partial
+    lists in split order (the earlier split first on equal d2) and sums the
+    counts.  A split's candidates all precede the next split's by position,
+    so the merge gives the unsplit order.
+    """
+    tile = int(tile)
+    n = grid.n_points
+
+    def rows_of(pts_padded, offs, qr, qi):
+        cand, d2, valid, within, live = _chunk_scores(
+            pts_padded, grid.buckets, grid.point_cells, grid.origin,
+            grid.inv_cell, grid.res_arr, offs, qr, qi, r2,
+            table_size=grid.table_size)
+        which = _split_of(live, splits, tile).reshape(cand.shape)
+        parts = [_topk_within(cand, d2, within & (which == s), k, n)
+                 for s in range(splits)]
+        merged = merge_partial_topk(
+            *(torch.stack([p[j] for p in parts]) for j in range(3)), k, n)
+        return (*merged, valid)
+
+    _plain_round(rows_of, points, grid, q, qid, k, out=out, tests=tests,
+                 unres=unres, res_round=res_round, t=t, executed=executed,
+                 chunk=chunk)
 
 
 def _grid_round_cuda(points, grid: Grid, q, qid, r2: float, k: int, *, out,
@@ -236,19 +339,36 @@ def _grid_round_cuda(points, grid: Grid, q, qid, r2: float, k: int, *, out,
 
 def _launch(points, grid: Grid, q, qid, r2: float, k: int, tiled: bool, *,
             out, tests, unres=None, res_round=None, t: int = 0,
-            executed=None) -> None:
+            executed=None, splits: int = 0, plan=None, ext=None) -> None:
     """One launch of the kernel's coarse (``tiled``) or fine design on
     checked tensors.  The wrapper picks the design with ``coarse_design``;
-    ``chip_smoke.py`` calls this directly to time both."""
+    ``chip_smoke.py``, the card tests and ``scripts/grid_round_ab.py`` call
+    this directly.  Coarse design only: ``splits`` > 0 forces S (0: the
+    kernel picks it from the count of rows that run), ``plan`` (2,) int32
+    on the card gets the (T, S) the launch used, and ``ext`` is the
+    extension to launch (by default this checkout's)."""
     od, oi, of = out
-    perm = (torch.argsort(cell_keys(q, grid, unres), stable=True) if tiled
-            else None)
-    extension().grid_round(
+    nq, d = q.shape
+    ext = extension() if ext is None else ext
+    perm = n_active = None
+    ws = (None, None, None)
+    if tiled:
+        perm = torch.argsort(cell_keys(q, grid, unres), stable=True)
+        if unres is not None:  # a device op: no host read
+            n_active = unres.sum(dtype=torch.int32).reshape(1)
+        rows = ext.grid_round_workspace_rows(d, int(k), nq, unres is not None,
+                                             int(splits), q.device.index or 0)
+        if rows:
+            ws = (torch.empty((rows, k), dtype=torch.float32, device=q.device),
+                  torch.empty((rows, k), dtype=torch.int32, device=q.device),
+                  torch.empty((rows,), dtype=torch.int32, device=q.device))
+    ext.grid_round(
         points, grid.buckets, grid.point_cells, grid.origin, grid.inv_cell,
-        grid.res_arr, q, qid, perm, int(k), float(r2), tiled, od, oi, of,
-        unres, res_round, int(t), tests, executed,
+        grid.res_arr, q, qid, perm, n_active, int(k), float(r2), tiled, od,
+        oi, of, unres, res_round, int(t), tests, executed, *ws, plan,
+        int(splits),
     )
-    count_launch("grid_round")
+    count_launch("grid_round", wide=k > 32)
 
 
 def grid_round(points, grid: Grid, q, qid, r2: float, k: int, *,

@@ -12,6 +12,7 @@
 #include <torch/extension.h>
 
 #include <optional>
+#include <tuple>
 
 #include "launch.h"
 
@@ -104,18 +105,31 @@ void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
                 const torch::Tensor& point_cells, const torch::Tensor& origin,
                 const torch::Tensor& inv_cell, const torch::Tensor& res,
                 const torch::Tensor& q, const torch::Tensor& qid,
-                const std::optional<torch::Tensor>& perm, int64_t k,
-                double r2, bool tiled,
-                const torch::Tensor& out_d2,
+                const std::optional<torch::Tensor>& perm,
+                const std::optional<torch::Tensor>& n_active, int64_t k,
+                double r2, bool tiled, const torch::Tensor& out_d2,
                 const torch::Tensor& out_i, const torch::Tensor& found,
                 const std::optional<torch::Tensor>& unres,
                 const std::optional<torch::Tensor>& res_round, int64_t t,
                 const torch::Tensor& tests,
-                const std::optional<torch::Tensor>& executed) {
+                const std::optional<torch::Tensor>& executed,
+                const std::optional<torch::Tensor>& ws_d,
+                const std::optional<torch::Tensor>& ws_i,
+                const std::optional<torch::Tensor>& ws_f,
+                const std::optional<torch::Tensor>& plan, int64_t splits) {
   const c10::Device dev = q.device();
   TORCH_CHECK(dev.is_cuda(), "grid_round: needs CUDA tensors");
   const c10::cuda::CUDAGuard guard(dev);
   const auto f32 = torch::kFloat32, i32 = torch::kInt32;
+  const int64_t ws_rows = ws_f.has_value() ? ws_f->size(0) : 0;
+  if (plan.has_value())
+    TORCH_CHECK(plan->numel() >= 2, "grid_round: plan must hold (T, S)");
+  if (ws_d.has_value() || ws_i.has_value())
+    TORCH_CHECK(ws_d.has_value() && ws_i.has_value() && ws_f.has_value() &&
+                    ws_d->dim() == 2 && ws_i->dim() == 2 &&
+                    ws_d->size(0) == ws_rows && ws_i->size(0) == ws_rows &&
+                    ws_d->size(1) == k && ws_i->size(1) == k,
+                "grid_round: workspace must be (rows, k), (rows, k), (rows,)");
   check_launch(
       grid_round_launch(
           ptr<const float>(pts, f32, dev, "points"),
@@ -127,6 +141,7 @@ void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
           ptr<const float>(q, f32, dev, "queries"),
           ptr<const int>(qid, i32, dev, "query_ids"),
           opt_ptr<const long long>(perm, torch::kInt64, dev, "perm"),
+          opt_ptr<const int>(n_active, i32, dev, "n_active"),
           static_cast<int>(q.size(0)), static_cast<int>(pts.size(0)),
           static_cast<int>(q.size(1)), static_cast<int>(buckets.size(0)),
           static_cast<int>(buckets.size(1)), static_cast<int>(k),
@@ -139,8 +154,24 @@ void grid_round(const torch::Tensor& pts, const torch::Tensor& buckets,
           static_cast<int>(t),
           ptr<unsigned long long>(tests, torch::kInt64, dev, "tests"),
           opt_ptr<int>(executed, i32, dev, "executed"),
+          opt_ptr<float>(ws_d, f32, dev, "ws_d"),
+          opt_ptr<int>(ws_i, i32, dev, "ws_i"),
+          opt_ptr<int>(ws_f, i32, dev, "ws_f"), ws_rows,
+          opt_ptr<int>(plan, i32, dev, "plan"), static_cast<int>(splits),
           c10::cuda::getCurrentCUDAStream(dev.index()).stream()),
       "grid_round");
+}
+
+int64_t grid_workspace_rows(int64_t d, int64_t k, int64_t nq, bool fused,
+                            int64_t splits, int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  long long rows = 0;
+  check_launch(grid_round_workspace_rows(
+                   static_cast<int>(d), static_cast<int>(k),
+                   static_cast<int>(nq), fused ? 1 : 0,
+                   static_cast<int>(splits), &rows),
+               "grid_round_workspace_rows");
+  return rows;
 }
 
 }  // namespace
@@ -150,4 +181,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pairwise_topk_merge", &pairwise_topk_merge);
   m.def("pairwise_topk_rows_per_block", &rows_per_block);
   m.def("grid_round", &grid_round);
+  m.def("grid_round_workspace_rows", &grid_workspace_rows);
 }

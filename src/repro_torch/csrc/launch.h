@@ -45,16 +45,33 @@ int pairwise_topk_merge_launch(const float* part_d, const int* part_i,
 // res_round (nq,) i32 and executed (one i32) are null outside the fused
 // loop.  tiled != 0 takes the coarse-grid design (cap a multiple of 4,
 // buckets 16-byte aligned) and needs perm (nq,) i64, a permutation of the
-// rows (position i works on row perm[i]); the fine design works on the
-// rows in their own order and takes perm = null.  1 <= d <= 3.
+// rows (position i works on row perm[i]; in fused mode the rows whose unres
+// flag is set come first); the fine design works on the rows in their own
+// order and takes perm = n_active = null, splits = 0.  1 <= d <= 3.
+// Coarse design only: n_active (one i32: the rows that run, the set unres
+// flags in fused mode) or null (all nq); the workspace ws_d / ws_i
+// (ws_rows, k) f32 / i32 and ws_f (ws_rows,) i32, where split lists go;
+// splits = 0 picks S on the device from the active count, splits = S > 0
+// forces S; ws_rows >= grid_round_workspace_rows (the workspace may be
+// null where that is 0).  plan (two i32) or null: (T, S) as the launch
+// used them.  A launch with S > 1 possible also launches the merge pass.
 int grid_round_launch(const float* pts, const int* buckets,
                       const int* point_cells, const float* origin,
                       const float* inv_cell, const int* res, const float* q,
-                      const int* qid, const long long* perm, int nq, int n,
-                      int d, int table_size, int cap, int k, float r2,
-                      int tiled, float* out_d2, int* out_i, int* found,
+                      const int* qid, const long long* perm,
+                      const int* n_active, int nq, int n, int d,
+                      int table_size, int cap, int k, float r2, int tiled,
+                      float* out_d2, int* out_i, int* found,
                       unsigned char* unres, int* res_round, int t,
-                      unsigned long long* tests, int* executed, void* stream);
+                      unsigned long long* tests, int* executed, float* ws_d,
+                      int* ws_i, int* ws_f, long long ws_rows, int* plan,
+                      int splits, void* stream);
+
+// The workspace rows a coarse launch of nq rows at (d, k) needs on the
+// current device: fused != 0 when it takes an active count (n_active),
+// splits as for grid_round_launch; 0 when it runs unsplit.
+int grid_round_workspace_rows(int d, int k, int nq, int fused, int splits,
+                              long long* rows);
 
 #ifdef __cplusplus
 }

@@ -53,10 +53,11 @@
 // one vote.  (With one thread a query, a thread's insertion sort would
 // hold up its warp whenever any lane had a candidate, which early in every
 // range is nearly always, and a warp's list accesses would touch 32 rows.)
-// Merge: a warp a row.  Split 0's list is taken as it is; then the heads
-// of 32 splits at a time are read at once, and only a split whose head is
-// below the gate is walked, 32 entries at a time in order until one is not
-// below the gate (the lists are sorted, so no later one is).
+// Merge: a warp a row (topk_list.cuh::warp_merge, which grid_round's
+// merge shares).  Split 0's list is taken as it is; then the heads of 32
+// splits at a time are read at once, and only a split whose head is below
+// the gate is walked, 32 entries at a time in order until one is not below
+// the gate (the lists are sorted, so no later one is).
 //
 // Bound on this card: operations.  Per pair the L2 form costs d subtractions
 // and d multiply-adds, 3d FP32 flops, against O((Q + N) d) bytes moved.  The
@@ -91,15 +92,17 @@
 
 namespace {
 
+using repro_torch::kAllLanes;
+using repro_torch::kpl_of;
 using repro_torch::RowWarpTopK;
 using repro_torch::WarpTopK;
+using repro_torch::warp_merge;
+using repro_torch::with_list;
 
 constexpr int kThreads = 128;
 constexpr int kTileFloats = 8192;  // 32 KB of shared memory per block
 constexpr int kMaxTile = 2048;
 constexpr int kMergeThreads = 128;
-constexpr int kMaxWarpK = 1024;  // the largest WarpTopK: 32 entries a lane
-constexpr unsigned kAllLanes = 0xffffffffu;  // every sync call: the whole warp
 constexpr int kLowD = 8;
 enum { kL2 = 0, kL1 = 1, kLinf = 2, kL2Diff = 3 };
 
@@ -176,36 +179,6 @@ constexpr int form_of(int metric, int d) {
   return (metric == kL2 || metric == kL2Diff) && (d == 2 || d == 3) ? d
          : d <= kLowD                                               ? 0
                                                                     : -1;
-}
-
-// Entries a lane of the warp list holds: the fewest of 1, 2, 4, 8, 16, 32
-// whose 32 * KPL entries hold k; 0 above kMaxWarpK, where the list is a
-// RowWarpTopK in the query's row (its kPerLane).
-constexpr int kpl_of(int k) {
-  return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= 256 ? 8
-         : k <= 512 ? 16 : k <= kMaxWarpK ? 32 : 0;
-}
-
-// Calls f with an (empty) list of the type that keeps a k-best list: the
-// one place where k picks the list, for both passes.
-template <class F>
-void with_list(int k, F f) {
-  switch (kpl_of(k)) {
-    case 0:
-      return f(RowWarpTopK{});
-    case 1:
-      return f(WarpTopK<1>{});
-    case 2:
-      return f(WarpTopK<2>{});
-    case 4:
-      return f(WarpTopK<4>{});
-    case 8:
-      return f(WarpTopK<8>{});
-    case 16:
-      return f(WarpTopK<16>{});
-    default:
-      return f(WarpTopK<32>{});
-  }
 }
 
 // Query rows a warp serves: four where the tile holds float4 rows and the
@@ -385,54 +358,16 @@ pairwise_merge_kernel(const float* __restrict__ part_d,
   // warp-uniform: the whole warp leaves
   if (row >= nq || (row_mask != nullptr && row_mask[row] == 0)) return;
   const size_t split_stride = (size_t)nq * k;
-  const float* rd = part_d + (size_t)row * k;  // split 0's list of the row
-  const int* ri = part_i + (size_t)row * k;
   int count = 0;
   for (int s = lane; s < splits; s += 32)
     count += part_c[(size_t)s * nq + row];
-  float* od = out_d + (size_t)row * k;
-  int* oi = out_i + (size_t)row * k;
   List list;
-  list.load(od, oi, rd, ri, k, lane, n);  // split 0 alone gives its own list
-  float gate = list.gate();
-  for (int s0 = 1; s0 < splits; s0 += 32) {
-    // the heads of 32 splits at once; one at or above the gate adds
-    // nothing, since the gate only falls
-    const int s = s0 + lane;
-    const float head = s < splits ? rd[s * split_stride] : CUDART_INF_F;
-    unsigned todo = __ballot_sync(kAllLanes, head < gate);
-    while (todo != 0) {
-      const int src = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const size_t at = (size_t)(s0 + src) * split_stride;
-      // the split's entries in (distance, index) order, 32 at a time,
-      // until one is not below the gate
-      bool more = true;
-      for (int c0 = 0; more && c0 < k; c0 += 32) {
-        const bool valid = c0 + lane < k;
-        const float dv = valid ? rd[at + c0 + lane] : CUDART_INF_F;
-        const int iv = valid ? ri[at + c0 + lane] : n;
-        unsigned take = __ballot_sync(kAllLanes, dv < gate);
-        more = take == kAllLanes;
-        while (take != 0) {
-          const int from = __ffs(take) - 1;
-          take &= take - 1;
-          const float dd = __shfl_sync(kAllLanes, dv, from);
-          const int id = __shfl_sync(kAllLanes, iv, from);
-          if (!(dd < gate)) {  // warp-uniform; no later entry is below
-            more = false;
-            break;
-          }
-          list.insert(dd, id, lane);
-          gate = list.gate();
-        }
-      }
-    }
-  }
+  warp_merge(list, part_d + (size_t)row * k, part_i + (size_t)row * k,
+             split_stride, splits, k, n, lane, out_d + (size_t)row * k,
+             out_i + (size_t)row * k);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     count += __shfl_xor_sync(kAllLanes, count, off);
-  list.store(od, oi, k, lane);
   if (lane == 0) out_c[row] = count;
 }
 

@@ -9,18 +9,24 @@
 // or `gate()` for the warp lists), so NaN distances and +inf are never
 // kept, and empty slots stay (+inf, sentinel).
 //
-// RegTopK and MemTopK are one thread's lists (grid_round).  WarpTopK is
-// one list spread over a warp's 32 lanes in registers (pairwise_topk's
-// first pass and merge at k <= 32 * 32): every lane moves its own entries
-// in one insertion, so the warp inserts a candidate in O(KPL) steps a lane
-// and one shuffle.  RowWarpTopK is one list of any k in a row of memory,
-// kept by a whole warp (pairwise_topk above 32 * 32): an insertion moves
-// the entries above its place 32 at a time, every access coalesced.
+// RegTopK and MemTopK are one thread's lists (grid_round at k <= 32).
+// WarpTopK is one list spread over a warp's 32 lanes in registers (both
+// kernels at 32 < k <= 32 * 32, and every merge up to there): every lane
+// moves its own entries in one insertion, so the warp inserts a candidate
+// in O(KPL) steps a lane and one shuffle.  RowWarpTopK is one list of any k
+// in a row of memory, kept by a whole warp (above 32 * 32): an insertion
+// moves the entries above its place 32 at a time, every access coalesced.
+// warp_merge combines the sorted partial lists of several splits with
+// either warp list.
 #pragma once
 
 #include <math_constants.h>
+#include <stddef.h>
 
 namespace repro_torch {
+
+// The mask of every warp-synchronous call: the whole warp takes part.
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 // k <= KCAP: the list lives in registers (nvcc keeps an 8-entry list there;
 // a 32-entry one it puts in local memory).  init's pointers and stride are
@@ -74,12 +80,10 @@ struct RegTopK {
   }
 };
 
-// A list in memory: slot j of a list at d[j * stride], i[j * stride].  In
-// shared memory (stride = the block's threads, so a warp's lanes touch
-// consecutive words) it keeps the hot loop free of the list's registers;
-// in the output row itself (global memory, stride 1, cached in L1/L2) it
-// takes any k the callers ask for.  An insertion shifts only the entries
-// after the new one.
+// A list in shared memory: slot j of a list at d[j * stride],
+// i[j * stride], stride = the block's threads, so a warp's lanes touch
+// consecutive words; it keeps the hot loop free of the list's registers.
+// An insertion shifts only the entries after the new one.
 struct MemTopK {
   float* d;
   int* i;
@@ -111,9 +115,8 @@ struct MemTopK {
     worst = d[(k - 1) * stride];
   }
 
-  // Copies the list to (od, oi) unless it lives there already.
+  // Copies the list to the row (od, oi).
   __device__ __forceinline__ void store(float* od, int* oi, int k) const {
-    if (od == d) return;
     for (int j = 0; j < k; ++j) {
       od[j] = d[j * stride];
       oi[j] = i[j * stride];
@@ -168,9 +171,9 @@ struct WarpTopK {
   // Caller guarantees dist < gate().
   __device__ __forceinline__ void insert(float dist, int id, int lane) {
     if constexpr (KPL == 1) {
-      const int at = __popc(__ballot_sync(0xffffffffu, d[0] <= dist));
-      const float up_d = __shfl_up_sync(0xffffffffu, d[0], 1);
-      const int up_i = __shfl_up_sync(0xffffffffu, i[0], 1);
+      const int at = __popc(__ballot_sync(kAllLanes, d[0] <= dist));
+      const float up_d = __shfl_up_sync(kAllLanes, d[0], 1);
+      const int up_i = __shfl_up_sync(kAllLanes, i[0], 1);
       if (lane > at) {
         d[0] = up_d;
         i[0] = up_i;
@@ -180,8 +183,8 @@ struct WarpTopK {
       }
       return;
     }
-    float below_d = __shfl_up_sync(0xffffffffu, d[KPL - 1], 1);
-    const int below_i = __shfl_up_sync(0xffffffffu, i[KPL - 1], 1);
+    float below_d = __shfl_up_sync(kAllLanes, d[KPL - 1], 1);
+    const int below_i = __shfl_up_sync(kAllLanes, i[KPL - 1], 1);
     if (lane == 0) below_d = -CUDART_INF_F;  // nothing below position 0
     // selects, not branches: nvcc turns the if-else form into branches
     // at KPL >= 2, which a warp takes apart lane by lane
@@ -200,7 +203,7 @@ struct WarpTopK {
 
   // The k-th entry's distance, on every lane.
   __device__ __forceinline__ float gate() const {
-    return __shfl_sync(0xffffffffu, d[KPL - 1], 31);
+    return __shfl_sync(kAllLanes, d[KPL - 1], 31);
   }
 
   // The k entries to (od, oi) in order.
@@ -271,12 +274,12 @@ struct RowWarpTopK {
       const int step = (hi - lo + 31) / 32;
       const int e = lo + (lane + 1) * step - 1;  // the last of segment lane
       const int c =
-          __popc(__ballot_sync(0xffffffffu, e < hi && d[e] <= dist));
+          __popc(__ballot_sync(kAllLanes, e < hi && d[e] <= dist));
       lo += c * step;  // segment c holds the place
       hi = min(hi, lo + step);
     }
     const int e = lo + lane;
-    return lo + __popc(__ballot_sync(0xffffffffu, e < hi && d[e] <= dist));
+    return lo + __popc(__ballot_sync(kAllLanes, e < hi && d[e] <= dist));
   }
 
   // Places (dist, id) after every entry whose distance is <= dist; the
@@ -314,5 +317,92 @@ struct RowWarpTopK {
   // The list already lives in its row.
   __device__ __forceinline__ void store(float*, int*, int, int) const {}
 };
+
+// The largest WarpTopK: 32 entries a lane.
+constexpr int kMaxWarpK = 1024;
+
+// Entries a lane of the warp list holds: the fewest of 1, 2, 4, 8, 16, 32
+// whose 32 * KPL entries hold k; 0 above kMaxWarpK, where the list is a
+// RowWarpTopK in a row of memory (its kPerLane).
+constexpr int kpl_of(int k) {
+  return k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= 256 ? 8
+         : k <= 512 ? 16 : k <= kMaxWarpK ? 32 : 0;
+}
+
+// Calls f with an (empty) warp list of the type that keeps a k-best list:
+// the one place where k picks the warp list, for every kernel that keeps
+// one.  Returns what f returns.
+template <class F>
+auto with_list(int k, F f) -> decltype(f(RowWarpTopK{})) {
+  switch (kpl_of(k)) {
+    case 0:
+      return f(RowWarpTopK{});
+    case 1:
+      return f(WarpTopK<1>{});
+    case 2:
+      return f(WarpTopK<2>{});
+    case 4:
+      return f(WarpTopK<4>{});
+    case 8:
+      return f(WarpTopK<8>{});
+    case 16:
+      return f(WarpTopK<16>{});
+    default:
+      return f(WarpTopK<32>{});
+  }
+}
+
+// Merges `splits` partial lists of k entries each, every one in (distance,
+// arrival) order with empty slots (+inf, n), split s's at rd + s * stride
+// and ri + s * stride, into `list` and writes it to the row (od, oi).
+// Split 0's list is taken as it is; then the heads of 32 splits at a time
+// are read at once, and only a split whose head is below the gate is
+// walked, 32 entries at a time in order until one is not below the gate
+// (the lists are sorted, so no later one is).  An entry goes after every
+// entry of equal distance, so on a tie the earlier split comes first.
+// Called by the whole warp; `list` is an empty WarpTopK or RowWarpTopK.
+template <class List>
+__device__ __forceinline__ void warp_merge(List& list, const float* rd,
+                                           const int* ri, size_t stride,
+                                           int splits, int k, int n,
+                                           int lane, float* od, int* oi) {
+  list.load(od, oi, rd, ri, k, lane, n);  // split 0 alone gives its own list
+  float gate = list.gate();
+  for (int s0 = 1; s0 < splits; s0 += 32) {
+    // the heads of 32 splits at once; one at or above the gate adds
+    // nothing, since the gate only falls
+    const int s = s0 + lane;
+    const float head = s < splits ? rd[s * stride] : CUDART_INF_F;
+    unsigned todo = __ballot_sync(kAllLanes, head < gate);
+    while (todo != 0) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const size_t at = (size_t)(s0 + src) * stride;
+      // the split's entries in order, 32 at a time, until one is not
+      // below the gate
+      bool more = true;
+      for (int c0 = 0; more && c0 < k; c0 += 32) {
+        const bool valid = c0 + lane < k;
+        const float dv = valid ? rd[at + c0 + lane] : CUDART_INF_F;
+        const int iv = valid ? ri[at + c0 + lane] : n;
+        unsigned take = __ballot_sync(kAllLanes, dv < gate);
+        more = take == kAllLanes;
+        while (take != 0) {
+          const int from = __ffs(take) - 1;
+          take &= take - 1;
+          const float dd = __shfl_sync(kAllLanes, dv, from);
+          const int id = __shfl_sync(kAllLanes, iv, from);
+          if (!(dd < gate)) {  // warp-uniform; no later entry is below
+            more = false;
+            break;
+          }
+          list.insert(dd, id, lane);
+          gate = list.gate();
+        }
+      }
+    }
+  }
+  list.store(od, oi, k, lane);
+}
 
 }  // namespace repro_torch

@@ -13,8 +13,8 @@ first use.
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show which
 kernels its path went through (``reset_launches`` / ``launch_counts``).
-``WIDE_LAUNCHES`` counts apart the ``pairwise_topk`` launches at k > 32,
-whose lists hold several entries a lane or live in memory rows.
+``WIDE_LAUNCHES`` counts apart each kernel's launches at k > 32, whose
+lists are kept by a warp with several entries a lane or in memory rows.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ __all__ = [
     "WIDE_LAUNCHES",
     "BUILD_DIR",
     "extension",
+    "load_sources",
     "count_launch",
     "launch_counts",
     "reset_launches",
@@ -38,7 +39,7 @@ SOURCES = ("binding.cpp", "pairwise_topk.cu", "grid_round.cu")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 LAUNCHES = {"pairwise_topk": 0, "grid_round": 0}
-WIDE_LAUNCHES = {"pairwise_topk": 0}  # a part of LAUNCHES: k > 32
+WIDE_LAUNCHES = {"pairwise_topk": 0, "grid_round": 0}  # k > 32, a part
 _EXT = None
 _LOCK = threading.Lock()
 
@@ -59,21 +60,27 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def load_sources(csrc: Path, name: str, build_dir: Path):
+    """Build the ``SOURCES`` under ``csrc`` as the extension ``name`` in
+    ``build_dir`` (or load an unchanged build there) and return it."""
+    from torch.utils.cpp_extension import load
+
+    build_dir.mkdir(parents=True, exist_ok=True)  # load() does not
+    return load(
+        name=name,
+        sources=[str(csrc / s) for s in SOURCES],
+        build_directory=str(build_dir),
+        extra_cflags=["-O3"],
+        extra_cuda_cflags=list(NVCC_FLAGS),
+        verbose=False,
+    )
+
+
 def extension():
     """The loaded extension module (built on first use); raises if the
     build fails."""
     global _EXT
     with _LOCK:
         if _EXT is None:
-            from torch.utils.cpp_extension import load
-
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)  # load() does not
-            _EXT = load(
-                name="repro_torch_kernels",
-                sources=[str(CSRC / s) for s in SOURCES],
-                build_directory=str(BUILD_DIR),
-                extra_cflags=["-O3"],
-                extra_cuda_cflags=list(NVCC_FLAGS),
-                verbose=False,
-            )
+            _EXT = load_sources(CSRC, "repro_torch_kernels", BUILD_DIR)
         return _EXT

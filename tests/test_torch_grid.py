@@ -327,12 +327,14 @@ def _card_round(fn, p, g, q, qid, r2, k, fused_unres=None, **kw):
 
 @needs_card
 @pytest.mark.parametrize("coarse", [False, True])
-@pytest.mark.parametrize("k", [8, 32, 100])
+@pytest.mark.parametrize("k", [8, 32, 33, 64, 100, 128, 1024, 1100])
 @pytest.mark.parametrize("fused", [False, True])
 def test_cuda_grid_round_designs_match_plain(coarse, k, fused):
-    """The fine (one thread a query) and the coarse (shared-memory tiles)
-    designs against the plain version, non-fused and fused, on queries
-    that are not in cell order."""
+    """The fine (a thread or a warp a query) and the coarse (shared-memory
+    tiles) designs against the plain version, non-fused and fused, on
+    queries that are not in cell order, at every list: one thread's to
+    k = 32, the warp's register lists of 2 to 32 entries a lane (k = 33 to
+    1024) and the row list above."""
     from repro_torch.core.fixed_radius import coarse_design
 
     dev = torch.device("cuda")
@@ -383,7 +385,8 @@ def test_cuda_grid_round_ignores_the_order_it_is_handed(coarse):
     assert coarse_design(g) == coarse
     launch = lambda: extension().grid_round(  # noqa: E731
         p, g.buckets, g.point_cells, g.origin, g.inv_cell, g.res_arr, q, qid,
-        perm, k, r2, coarse, *out, None, None, 0, tests, None)
+        perm, None, k, r2, coarse, *out, None, None, 0, tests, None, None,
+        None, None, None, 1)
     if not coarse:
         with pytest.raises(RuntimeError, match="launch failed"):
             launch()
@@ -392,6 +395,53 @@ def test_cuda_grid_round_ignores_the_order_it_is_handed(coarse):
     torch.cuda.synchronize()
     for x, y in zip(out + [tests], want):
         assert torch.equal(x, y)
+
+
+@needs_card
+@pytest.mark.parametrize("k", [8, 32, 64, 100, 1100])
+@pytest.mark.parametrize("n_active", [1, 5, 206])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_grid_round_split_matches_plain(k, n_active, fused):
+    """The coarse design split across blocks: S forced to 1, 2, 3 and 8,
+    and the S the kernel derives from the count of rows that run (> 1 for
+    these few rows, as the launch reports it), against the plain version.
+    The rows that run are the ones whose cells sort last, at the end of the
+    input order; fused, the other 3000 - n_active rows are resolved and
+    must stay untouched."""
+    from repro_torch.core.fixed_radius import _launch, coarse_design
+
+    dev = torch.device("cuda")
+    pts = make_dataset("kitti", 1 << 15, seed=1)
+    p = torch.from_numpy(pts).to(dev)
+    g = build_grid(pts, 40.0, device_points=p)
+    assert coarse_design(g)
+    rng = np.random.default_rng(k + n_active)
+    m = 3000 if fused else n_active
+    rows = torch.from_numpy(rng.permutation(len(pts))[:3000]).to(dev)
+    rows = rows[torch.argsort(cell_keys(p[rows], g), stable=True)][-m:]
+    q = (p[rows] + 1e-4).contiguous()
+    qid = rows.to(torch.int32)
+    unres = None
+    if fused:
+        unres = torch.zeros(m, dtype=torch.uint8, device=dev)
+        unres[m - n_active:] = 1
+    r2 = float(np.float32(40.0) ** 2)
+    want = _card_round(grid_round_plain, p, g, q, qid, r2, k, unres)
+    # positions a coarse block serves: 128 threads of 2 or 1 queries, or 8
+    # warps of 4 (lists of <= 8 entries a lane) or 1 (the row list)
+    per_block = {8: 256, 32: 128, 64: 32, 100: 32, 1100: 8}[k]
+    for splits in (0, 1, 2, 3, 8):
+        plan = torch.full((2,), -1, dtype=torch.int32, device=dev)
+        got = _card_round(
+            lambda *a, **kw: _launch(*a[:6], True, splits=splits, plan=plan,
+                                     **kw),
+            p, g, q, qid, r2, k, unres)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), splits
+        tiles, s = plan.tolist()
+        assert s == splits if splits else s > 1, (splits, s)
+        assert tiles == -(-n_active // per_block), tiles
 
 
 @needs_card
