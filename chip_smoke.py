@@ -94,7 +94,7 @@ comes out:
    2^16 rows, equal bitwise to the brute backend and to a one-position
    mesh; round 0's kernel call at the last position (S = 1, shifted self
    ids) held bitwise against the plain version;
-13. ``distributed_trueknn_grid`` on phase 12's mesh over uniform 2^22 (on
+13. ``distributed_trueknn_grid`` on phase 12's mesh over uniform 2^21 (on
    kitti the reference's shared stacked-grid shape needs up to 2^40 slots
    a shard) and 2^16 rows: distances to TOL and indices up to the order
    of tied neighbors against the dense engine on the same rows, fewer
@@ -119,7 +119,8 @@ comes out:
    unchanged bitwise, every position occupied); round 0's call of one slot,
    the escalation's call of one slot and an ``l2diff`` call at d = 12 held
    bitwise against the plain version and timed;
-16. ``backend="mutable"`` over a trueknn base of kitti 2^20: 2^14 rows of a
+16. ``backend="mutable"`` over a trueknn base of kitti 2^19 (a draw of its
+   own; 2^20 before its host grid builds were cut): 2^14 rows of a
    second kitti draw inserted (8 sealed brute deltas), 64 ids deleted;
    ``KnnSpec(8)``, ``HybridSpec(8, r)``, ``RangeSpec(r)`` on phase 5's rows
    against a trueknn index rebuilt over the live rows (``map_to_stable``;
@@ -140,20 +141,23 @@ comes out:
    reads;
 18. ``max_knn_distance`` and ``percentile_knn_distance`` on kitti 2^20,
    k = 8, equal to phase 4's batch 2 (max; 99th percentile of the 8th
-   column); a kNN-LM datastore of 2^20 synthetic hidden states of width
-   1024, ``knn_logprobs`` on 4096 rows, vocab 32,768: its retrieval
+   column); a kNN-LM datastore of 2^18 synthetic hidden states of width
+   1024 (cut from 2^20: the host draw and PCA), ``knn_logprobs`` on 4096
+   rows, vocab 32,768: its retrieval
    bitwise equal to a direct query, rows summing to 1 within 1e-5, within
    1e-6 of the reference's host formula; then
    ``repro_torch.launch.serve.main`` in process: ``--mode knn`` on kitti
-   2^20 (open loop), the placed sharded index on a 4-position mesh,
+   2^19 (open loop; cut from 2^20, its batch 1's host grid builds), the
+   placed sharded index on a 4-position mesh,
    ``--mode graph`` and ``--mode dbscan`` on 2^16 points;
 19. the LM stack (``repro_torch.models``, ``serve``), eager PyTorch in
    bf16 with float32 accumulation: (a) Qwen3-0.6B at full width and
    depth from a seeded generator on the card, ``param_count()`` equal to
    the parameters built; a float32 copy's prefill (2 x 128 tokens, TF32
    off) against the CPU's float32 run; bf16 ``decode_step`` (16 teacher-
-   forced steps) against ``forward``; ``BatchedServer`` serving 64
-   requests of 16-256 tokens through 8 slots, 64 new tokens greedy, each
+   forced steps) against ``forward``; ``BatchedServer`` serving 32
+   requests (cut from 64: its decode step is host-bound) of 16-256 tokens
+   through 8 slots, 64 new tokens greedy, each
    completion equal to a direct prefill + ``decode_step`` loop over the
    same padded batch (tokens/s, prefill and decode-step p50/p99, peak
    memory); (c) a kNN-LM datastore of its final hidden states over 2^18
@@ -199,15 +203,27 @@ comes out:
    ``compressed_psum_mean`` over 4 data positions on 4 rows' gradients,
    bitwise equal to the CPU's, its error against the exact mean; (d) the
    dry-run's trueknn cell (2^20 uniform points a shard, 2^16 queries;
-   2^19 a shard for the grid engine, whose host probes bound the phase),
+   2^18 a shard for the grid engine, whose host probes bound the phase),
    dense and grid, on 256 and 512 positions of the card, 4096 rows
    against the brute backend, position (0, 15)'s ``pairwise_topk`` call
    against the plain version; (e) ``launch.dryrun.main`` on meta for
    qwen3-0.6b train_4k single and deepseek-v2-lite-16b decode_32k multi;
-   then the kernels line and the device line.
+22. (run after phase 11) the reference's deprecated entry forms on kitti
+   2^20: ``trueknn(kitti, 8)`` bitwise equal to phase 4's batch 1
+   (answers, ``found``, ``n_tests`` and every round's radius, rows,
+   resolved and tests; wall time beside batch 1's), ``brute_knn`` on
+   phase 5's rows equal to the brute backend's ``KnnSpec(8)``,
+   ``fixed_radius_knn`` at phase 9's radius on those rows equal to a fresh
+   ``HybridSpec(8, r)`` index and, as a self-query, to phase 9's first
+   batch, ``index.query(q, 8)`` and ``index.query(q, k=8, radius=r0)`` on
+   phase 4's warm index equal to ``KnnSpec(8)`` and ``KnnSpec(8,
+   start_radius=r0)``; each form's ``DeprecationWarning`` recorded
+   exactly once, attributed to this file; both kernels launched;
+then the phase seconds (each phase's, and the five slowest), the
+kernels line and the device line.
 
 Every check raises, so any failure exits non-zero.  The launch counters
-are zeroed just before each entry point (phases 4, 5 and 9-21) and read
+are zeroed just before each entry point (phases 4, 5 and 9-22) and read
 just after; a kernel of that path that was not launched fails the run.
 """
 
@@ -254,6 +270,14 @@ COUNTED_ROWS = 64  # phase 11: rows of the k > 32 counted rounds held plain
 P_MESH = 4  # phases 12-13: model positions, 2^20 points each
 MESH_ROUNDS = 24  # configs/trueknn.py: max_rounds
 DIST_ROWS = 1 << 16  # configs/trueknn.py: n_queries = 1 << 16
+#: phase 13's points a position: 2^21 in all, cut from 2^22 for its host
+#: grid builds (27.4 s of the phase's 37.7 s at 2^22; 22.5 s at 2^21,
+#: whose sparser cloud takes 7 rounds to 2^22's 5)
+GRID_MESH_POINTS = 1 << 19
+#: phase 16's trueknn base, cut from the whole 2^20 cloud: its three
+#: batch-1 searches (the mutable base, the rebuild, after compact) are
+#: host grid builds, 33 s of the phase's 46.2 s at 2^20
+MUT_BASE = 1 << 19
 
 
 def check(cond, msg):
@@ -335,6 +359,28 @@ def bound(bytes_moved, flops):
     t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_f = flops / FP32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+class PhaseClock:
+    """Host seconds of each phase: ``start`` closes the running phase (its
+    ``phase N took`` line) and opens the next; ``stop`` closes it with an
+    addendum to that line."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._n = None
+
+    def start(self, n, title):
+        if self._n is not None:
+            self.stop()
+        log(f"phase {n}: {title}")
+        self._n, self._t0 = n, time.perf_counter()
+
+    def stop(self, extra=""):
+        took = time.perf_counter() - self._t0
+        self.seconds[self._n] = took
+        log(f"  phase {self._n} took {took:.1f}s{extra}")
+        self._n = None
 
 
 # -- phase 2: pairwise_topk ------------------------------------------------
@@ -727,13 +773,14 @@ def phase_main(dev, kitti_np, rng):
     build.reset_launches()
     t0 = time.perf_counter()
     index = build_index(kitti_np, backend="trueknn", device=dev)
-    batches = []
+    batches, walls = [], []
     for b in (1, 2):
         t1 = time.perf_counter()
         res = index.query(None, KnnSpec(8))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         batches.append(res)
+        walls.append(wall)
         tail = sum(r.n_queries for r in res.rounds if math.isinf(r.radius))
         log(f"  batch {b}: start={res.timings['start_radius_source']} "
             f"r0={res.start_radius:.6g} rounds={res.n_rounds} "
@@ -769,7 +816,7 @@ def phase_main(dev, kitti_np, rng):
     hold_rows("trueknn", b2.dists[rows], b2.idxs[rows], bd, bi, kitti_np,
               rows)
     radius = float(np.median(b2.dists[:, 7]))
-    return index, batches, counts, radius
+    return index, batches, counts, radius, walls
 
 
 def hold_rows(tag, gd, gi, bd, bi, pts, rows):
@@ -1329,7 +1376,7 @@ def phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally):
         f"equal to the brute backend's (nnz={len(got.idxs)}, passes="
         f"{got.timings['count_rounds']}, counted-round k={counted_k(got)}, "
         f"wall_s={wall:.4f}, launches {counts})")
-    return index
+    return index, h1
 
 
 def _tied_or_equal(tag, got, want, q, pts, metric):
@@ -1681,7 +1728,7 @@ def hold_position_round0(dev, index, q, radius):
 
 def phase_distributed_grid(dev, mesh, rng, tally):
     """Phase 13: ``distributed_trueknn_grid`` on phase 12's mesh over a
-    uniform 2^22 cloud and 2^16 of its rows, held against the dense engine
+    uniform 2^21 cloud and 2^16 of its rows, held against the dense engine
     (``backend="distributed"``) on the same rows.  Not on kitti: the
     stacked grids share one (table_size, cap), the largest over the
     shards, and kitti's shards straddle the sizing probe's collapse (one
@@ -1691,7 +1738,7 @@ def phase_distributed_grid(dev, mesh, rng, tally):
     from repro_torch import KnnSpec, build_index, make_dataset
     from repro_torch.core.distributed_grid import distributed_trueknn_grid
 
-    n = P_MESH * N_MAIN
+    n = P_MESH * GRID_MESH_POINTS
     cloud = make_dataset("uniform", n)
     q = cloud[np.sort(rng.choice(n, DIST_ROWS, replace=False))]
     t0 = time.perf_counter()
@@ -2034,7 +2081,7 @@ def phase_placed(dev, kitti_np, tk_index, knn14, range5, radius, tally):
 
 
 def phase_mutable(dev, kitti_np, range5, radius, tally):
-    """Phase 16: ``backend="mutable"`` over a trueknn base of kitti 2^20:
+    """Phase 16: ``backend="mutable"`` over a trueknn base of kitti 2^19:
     2^14 inserted rows of a second kitti draw (8 sealed 2048-row brute
     deltas), 64 deletes (32 base ids, 32 inserted); ``KnnSpec(8)``,
     ``HybridSpec(8, r)`` and ``RangeSpec(r)`` on phase 5's rows held
@@ -2047,15 +2094,16 @@ def phase_mutable(dev, kitti_np, range5, radius, tally):
 
     q5 = kitti_np[range5[0]]
     secs = {}
-    mut = build_index(kitti_np, backend="mutable", base_backend="trueknn",
-                      delta_rows=2048, auto_compact="off", device=dev)
+    mut = build_index(make_dataset("kitti", MUT_BASE), backend="mutable",
+                      base_backend="trueknn", delta_rows=2048,
+                      auto_compact="off", device=dev)
     extra = make_dataset("kitti", 1 << 14, seed=1)
     t0 = time.perf_counter()
     ids = np.concatenate([mut.insert(extra[i:i + 2048])
                           for i in range(0, 1 << 14, 2048)])
     secs["inserts"] = time.perf_counter() - t0
     rng = np.random.default_rng(16)
-    dead = np.concatenate([rng.choice(N_MAIN, 32, replace=False),
+    dead = np.concatenate([rng.choice(MUT_BASE, 32, replace=False),
                            rng.choice(ids, 32, replace=False)])
     check(mut.delete(dead) == 64, "64 deletes")
     st = mut.stats()
@@ -2154,10 +2202,15 @@ def phase_mutable(dev, kitti_np, range5, radius, tally):
 
 SERVE_BATCH = 1024  # phase 17's max_batch: rows coalesced into one batch
 SERVE_RATE = 20000.0  # phase 17 (a): offered single-row requests per second
-LM_N = 1 << 20  # phase 18: kNN-LM datastore rows
+#: phase 18: kNN-LM datastore rows, cut from 2^20 (its host draw and PCA
+#: took 23.9 s of the phase's 46.0 s)
+LM_N = 1 << 18
 LM_D = 1024  # Khandelwal et al.'s key width
 LM_VOCAB = 32768
 LAUNCH_SMALL_N = 1 << 16  # phase 18: the launcher's graph and DBSCAN runs
+#: phase 18: the launcher's kNN open loop, cut from 2^20 (11.1 s, nearly
+#: all its warm batch's host grid builds)
+LAUNCH_KNN_N = 1 << 19
 
 
 class HostReads:
@@ -2378,7 +2431,7 @@ def phase_server(dev, kitti_np, lidar, placed, mut, range5, radius, graph11,
         server.stop()
         same_rows("read after insert", [seen], mut.query(new_q, KnnSpec(8)))
         live = mut.snapshot()[1]  # phase 16 deleted some base ids
-        dead = np.concatenate([minted[:64], live[live < N_MAIN][:64]])
+        dead = np.concatenate([minted[:64], live[live < MUT_BASE][:64]])
         server.start()
 
         def delete_then_read():
@@ -2439,7 +2492,7 @@ def phase_server(dev, kitti_np, lidar, placed, mut, range5, radius, graph11,
 
 def phase_apps(dev, kitti_np, b2, tally):
     """Phase 18: the oracle radii on kitti 2^20 against phase 4's batch 2,
-    a kNN-LM datastore of 2^20 synthetic hidden states of width 1024 with
+    a kNN-LM datastore of 2^18 synthetic hidden states of width 1024 with
     ``knn_logprobs`` on 4096 rows, and the serving launcher's modes in
     process."""
     import contextlib
@@ -2527,7 +2580,8 @@ def phase_apps(dev, kitti_np, b2, tally):
     del store, probs, want
 
     runs = (
-        ("knn open loop", ["--mode", "knn", "--n", str(N_MAIN), "--arrival",
+        ("knn open loop", ["--mode", "knn", "--n", str(LAUNCH_KNN_N),
+                           "--arrival",
                            "open", "--rate", f"{SERVE_RATE:.0f}",
                            "--batches", "1", "--batch-size",
                            str(2 * SERVE_BATCH)], ("grid_round",)),
@@ -2576,7 +2630,9 @@ def phase_apps(dev, kitti_np, b2, tally):
 LM_ARCH = "qwen3-0.6b"  # phase 19 (a): full width and depth
 LM_PROMPT = 128  # tokens a prompt in the consistency checks
 LM_STEPS = 16  # teacher-forced decode steps checked against forward
-SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 64, 8, 64  # phase 19 (a) server
+#: phase 19 (a) server; 32 requests, cut from 64: the server and the direct
+#: decode loop it is held against took ~52 s of the phase's 88.4 s
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 32, 8, 64
 STORE_ROWS, STORE_SEQ = 256, 1024  # phase 19 (c): 2^18 tokens of the stream
 #: f32 prefill logits on the card (TF32 off) vs the CPU: the same f32
 #: formula with other summation orders through 28 layers; a TF32 or bf16
@@ -3482,9 +3538,9 @@ CMEAN_REL_TOL = 0.05  # tests/test_distributed.py's bound on its error
 KNN_ROWS = 4096  # phase 21 (d): rows held against the brute backend
 #: phase 21 (d): the grid engine's points a shard, cut from the cell's
 #: 2^20: its 16 host grid probes of 2^20 points took 29-51 s a mesh in
-#: two runs, most of phase 21's 100-124 s; cut to keep the phase inside
-#: its ~150 s budget on a slower host
-GRID_CELL_POINTS = 1 << 19
+#: two runs, most of phase 21's 100-124 s, and 12-13 s a mesh at 2^19;
+#: cut to keep the whole script inside two thirds of its time limit
+GRID_CELL_POINTS = 1 << 18
 
 
 def cosine_lr(tcfg, step):
@@ -3923,6 +3979,133 @@ def phase_parallel(dev, tally):
     return out
 
 
+# -- phase 22: the deprecated entry forms -----------------------------------
+
+
+def round_keys(res):
+    """Each round's (radius, rows, resolved, tests) of a trueknn answer."""
+    return [(r.radius, r.n_queries, r.n_resolved, r.n_tests)
+            for r in res.rounds]
+
+
+#: each deprecated form's message, as the reference words it
+LEGACY_FORMS = {
+    "trueknn()": "trueknn() is deprecated",
+    "brute_knn()": "brute_knn() is deprecated",
+    "fixed_radius_knn()": "fixed_radius_knn() is deprecated",
+    "query(q, k)": "NeighborIndex.query(queries, k, radius=..., stop_radius"
+                   "=...) is deprecated",
+}
+
+
+def phase_legacy(dev, kitti_np, index, b1, b1_wall, range5, radius, h1,
+                 tally):
+    """Phase 22: the reference's deprecated entry forms on kitti 2^20,
+    each through the kernels of the path it adapts to and held bitwise
+    against the spec form on the same data: ``trueknn()`` against phase
+    4's batch 1 (both a fresh index with the same defaults and seed),
+    ``brute_knn`` on phase 5's rows, ``fixed_radius_knn`` at phase 9's
+    radius on those rows (against a fresh ``HybridSpec`` index) and as a
+    self-query (against phase 9's first, fresh-grid batch), and
+    ``index.query(q, k)`` / ``query(q, k=, radius=)`` on phase 4's warm
+    index; each form warns once, from this file."""
+    import warnings
+
+    from repro_torch import HybridSpec, KnnSpec, build_index
+    from repro_torch.api import query as query_mod
+    from repro_torch.core import brute_knn, fixed_radius_knn, trueknn
+
+    check(not query_mod._WARNED, "an earlier phase reached a deprecated "
+          f"form: {sorted(query_mod._WARNED)}")
+    rows, _ = range5
+    q = kitti_np[rows]
+    launched = {name: 0 for name in tally}
+
+    def run(tag, fn, need):
+        out, wall, counts = counted(tag, fn, tally, need=need)
+        for name, c in counts.items():
+            launched[name] += c
+        return out, wall, counts
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, wall, counts = run("trueknn()", lambda: trueknn(
+            kitti_np, 8, device=dev), ("grid_round", "pairwise_topk"))
+        same_arrays("trueknn() vs phase 4's batch 1", res, b1,
+                    ("dists", "idxs", "found", "n_tests"))
+        check(round_keys(res) == round_keys(b1),
+              "trueknn() rounds (radius, rows, resolved, tests) vs batch 1")
+        log(f"  trueknn(kitti, 8): {res.n_rounds} rounds, n_tests="
+            f"{res.n_tests}, dists/idxs/found/n_tests and every round's "
+            f"radius, rows, resolved and tests bitwise equal to phase 4's "
+            f"batch 1; wall_s={wall:.4f} (batch 1 wall_s={b1_wall:.4f}), "
+            f"launches {counts}")
+
+        (d, i, t), wall, counts = run(
+            "brute_knn()",
+            lambda: brute_knn(kitti_np, 8, queries=q, device=dev),
+            ("pairwise_topk",))
+        want = build_index(kitti_np, backend="brute", device=dev).query(
+            q, KnnSpec(8))
+        check(np.array_equal(d, want.dists) and np.array_equal(i, want.idxs)
+              and t == want.n_tests, "brute_knn() vs the brute backend")
+        log(f"  brute_knn on phase 5's {len(rows)} rows: dists, idxs and "
+            f"n_tests={t} bitwise equal to build_index(backend='brute')"
+            f".query(KnnSpec(8)); wall_s={wall:.4f}, launches {counts}")
+
+        (d, i, f, t), wall, counts = run(
+            "fixed_radius_knn()",
+            lambda: fixed_radius_knn(kitti_np, radius, 8, queries=q,
+                                     device=dev),
+            ("grid_round",))
+        want = build_index(kitti_np, backend="fixed_radius",
+                           device=dev).query(q, HybridSpec(8, radius))
+        check(np.array_equal(d, want.dists) and np.array_equal(i, want.idxs)
+              and np.array_equal(f, want.found) and t == want.n_tests,
+              "fixed_radius_knn() vs a fresh HybridSpec index")
+        (d, i, f, t), wall_self, _ = run(
+            "fixed_radius_knn() self-query",
+            lambda: fixed_radius_knn(kitti_np, radius, 8, device=dev),
+            ("grid_round",))
+        check(np.array_equal(d, h1.dists) and np.array_equal(i, h1.idxs)
+              and np.array_equal(f, h1.found) and t == h1.n_tests,
+              "fixed_radius_knn() self-query vs phase 9's first batch")
+        log(f"  fixed_radius_knn(r={radius:.6g}, 8) on those rows: "
+            f"dists, idxs, found, n_tests bitwise equal to a fresh "
+            f"HybridSpec(8, r) (wall_s={wall:.4f}, launches {counts}); as a "
+            f"self-query equal to phase 9's first batch (n_tests={t}, "
+            f"wall_s={wall_self:.4f})")
+
+        r0 = b1.start_radius
+        for tag, legacy, spec in (
+                ("query(q, 8)", lambda: index.query(q, 8), KnnSpec(8)),
+                (f"query(q, k=8, radius={r0:.6g})",
+                 lambda: index.query(q, k=8, radius=r0),
+                 KnnSpec(8, start_radius=r0))):
+            got, wall, counts = run(tag, legacy, ("grid_round",))
+            want = index.query(q, spec)
+            same_arrays(f"{tag} vs {spec}", got, want, ("dists", "idxs"))
+            log(f"  {tag} on phase 4's warm index: dists and idxs bitwise "
+                f"equal to {spec} (start radii {got.start_radius:.6g} / "
+                f"{want.start_radius:.6g}, rounds {got.n_rounds} / "
+                f"{want.n_rounds}); wall_s={wall:.4f}, launches {counts}")
+
+    dep = [x for x in caught if issubclass(x.category, DeprecationWarning)]
+    for form, text in LEGACY_FORMS.items():
+        n = sum(text in str(x.message) for x in dep)
+        check(n == 1, f"{form} warned {n} times in the phase, not once")
+    check(len(dep) == len(LEGACY_FORMS),
+          f"{len(dep)} deprecation warnings, not {len(LEGACY_FORMS)}")
+    here = os.path.abspath(__file__)
+    check(all(os.path.abspath(x.filename) == here for x in dep),
+          "a deprecation warning is attributed to another file than the "
+          f"caller's: {sorted({x.filename for x in dep})}")
+    for name in ("grid_round", "pairwise_topk"):
+        check(launched[name] > 0, f"phase 22 never launched {name}")
+    log(f"  each form warned once, from chip_smoke.py; phase launches "
+        f"{launched}")
+
+
 def main() -> int:
     import torch
 
@@ -3958,99 +4141,95 @@ def main() -> int:
     kitti = torch.as_tensor(kitti_np, device=dev)
     porto = torch.as_tensor(make_dataset("porto", N_PORTO), device=dev)
 
-    log("phase 2: pairwise_topk kernel vs plain version")
+    clock = PhaseClock()
+    clock.start(2, "pairwise_topk kernel vs plain version")
     pw_err = phase_pairwise(dev, kitti, porto, rng)
-    log("phase 3: grid_round kernel vs plain version")
+    clock.start(3, "grid_round kernel vs plain version")
     kitti_sched, grid_err, heavy, few_rows = phase_grid(dev, kitti_np, rng)
     log(f"  (schedule of {len(kitti_sched[0].radii)} rounds)")
-    log("phase 4: main path, trueknn KnnSpec(8) self-query on kitti 2^20")
-    index, (b1, b2), main_counts, radius = phase_main(dev, kitti_np, rng)
-    log("phase 5: brute RangeSpec at full width")
+    clock.start(4, "main path, trueknn KnnSpec(8) self-query on kitti 2^20")
+    index, (b1, b2), main_counts, radius, walls = phase_main(dev, kitti_np,
+                                                             rng)
+    clock.start(5, "brute RangeSpec at full width")
     range_counts, q, qid, thr, range_err, range5 = phase_range(
         dev, kitti_np, radius, rng)
-    log("phase 6: porto 2^18, fused and host loop")
+    clock.start(6, "porto 2^18, fused and host loop")
     phase_porto(dev, rng)
-    log("phase 7: kernel times at main-path shapes")
+    clock.start(7, "kernel times at main-path shapes")
     pw_t, samp_t, g_t, heavy_t, wide_rows = phase_times(
         dev, index, b1, q, qid, thr, heavy, rng)
-    log("phase 8: grid_round's two designs on every scheduled grid")
+    clock.start(8, "grid_round's two designs on every scheduled grid")
     sweep = phase_designs(dev, kitti_sched)
     del kitti_sched
     tally = {"pairwise_topk": 0, "grid_round": 0, WIDE: 0, GWIDE: 0}
-    log(f"phase 9: fixed_radius on kitti 2^20 at r = {radius:.6g}")
-    fr_index = phase_fixed_radius(dev, kitti_np, radius, range5, rng, tally)
-    log("phase 10: generic routes on 4096 rows")
+    clock.start(9, f"fixed_radius on kitti 2^20 at r = {radius:.6g}")
+    fr_index, h1 = phase_fixed_radius(dev, kitti_np, radius, range5, rng,
+                                      tally)
+    clock.start(10, "generic routes on 4096 rows")
     route_s = phase_routes(dev, kitti_np, index, fr_index, rng, tally)
-    log("phase 11: all-pairs self-queries, kNN graph and DBSCAN")
+    clock.start(11, "all-pairs self-queries, kNN graph and DBSCAN")
     range_rounds, graph11 = phase_all_pairs(dev, index, fr_index, b2, radius,
                                             tally)
-    log(f"  phases 9-11 launches {tally}; route seconds "
-        f"{json.dumps(route_s)}")
+    clock.stop(f"; phases 9-11 launches {tally}; route seconds "
+               f"{json.dumps(route_s)}")
     del fr_index
-    t0 = time.perf_counter()
-    log("phase 12: distributed dense, 4 positions on one card, kitti 2^22")
+    clock.start(22, "the deprecated entry forms on kitti 2^20: trueknn(), "
+                "brute_knn, fixed_radius_knn, query(q, k)")
+    phase_legacy(dev, kitti_np, index, b1, walls[0], range5, radius, h1,
+                 tally)
+    del h1
+    clock.start(12, "distributed dense, 4 positions on one card, kitti 2^22")
     mesh = phase_distributed(dev, rng, tally)
-    log(f"  phase 12 took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    log("phase 13: distributed_trueknn_grid on phase 12's mesh, uniform "
-        "2^22")
+    clock.start(13, "distributed_trueknn_grid on phase 12's mesh, uniform "
+                "2^21")
     phase_distributed_grid(dev, mesh, rng, tally)
-    log(f"  phase 13 took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    log("phase 14: sharded (placement='host') over kitti 2^20, 8 trueknn "
-        "shards")
+    clock.start(14, "sharded (placement='host') over kitti 2^20, 8 trueknn "
+                "shards")
     sharded_s, knn14 = phase_sharded(dev, kitti_np, index, b2, range5,
                                      radius, rng, tally)
-    log(f"  phase 14 took {time.perf_counter() - t0:.1f}s; seconds "
-        f"{json.dumps(sharded_s)}")
-    t0 = time.perf_counter()
-    log("phase 15: sharded (placement='devices') over kitti 2^20, 8 trueknn "
-        "shards on one card")
+    clock.stop(f"; seconds {json.dumps(sharded_s)}")
+    clock.start(15, "sharded (placement='devices') over kitti 2^20, 8 "
+                "trueknn shards on one card")
     placed_s, placed_rows, placed_err, placed = phase_placed(
         dev, kitti_np, index, knn14, range5, radius, tally)
-    log(f"  phase 15 took {time.perf_counter() - t0:.1f}s; per batch "
-        f"{json.dumps(placed_s)}")
-    t0 = time.perf_counter()
-    log("phase 16: mutable over a trueknn base of kitti 2^20")
+    clock.stop(f"; per batch {json.dumps(placed_s)}")
+    clock.start(16, "mutable over a trueknn base of kitti 2^19")
     mutable_s, mut = phase_mutable(dev, kitti_np, range5, radius, tally)
-    log(f"  phase 16 took {time.perf_counter() - t0:.1f}s; seconds "
-        f"{json.dumps(mutable_s)}")
-    t0 = time.perf_counter()
-    log("phase 17: NeighborServer on the card, worker thread, tenants "
-        "'lidar' (phase 4), 'placed' (phase 15), 'mutable' (phase 16)")
+    clock.stop(f"; seconds {json.dumps(mutable_s)}")
+    clock.start(17, "NeighborServer on the card, worker thread, tenants "
+                "'lidar' (phase 4), 'placed' (phase 15), 'mutable' (phase 16)")
     server_s = phase_server(dev, kitti_np, index, placed, mut, range5,
                             radius, graph11, tally)
     del placed, mut, graph11
-    log(f"  phase 17 took {time.perf_counter() - t0:.1f}s; per part "
-        f"{json.dumps(server_s)}")
-    t0 = time.perf_counter()
-    log("phase 18: oracle radii, kNN-LM datastore and the serving launcher")
+    clock.stop(f"; per part {json.dumps(server_s)}")
+    clock.start(18, "oracle radii, kNN-LM datastore and the serving launcher")
     apps_s = phase_apps(dev, kitti_np, b2, tally)
-    log(f"  phase 18 took {time.perf_counter() - t0:.1f}s; seconds "
-        f"{json.dumps(apps_s)}")
-    t0 = time.perf_counter()
-    log("phase 19: the LM stack: Qwen3-0.6B at full width and depth, "
-        "BatchedServer, a kNN-LM datastore of its hidden states, the other "
-        "nine architectures at full width")
+    clock.stop(f"; seconds {json.dumps(apps_s)}")
+    clock.start(19, "the LM stack: Qwen3-0.6B at full width and depth, "
+                "BatchedServer, a kNN-LM datastore of its hidden states, the "
+                "other nine architectures at full width")
     lm_s = phase_lm(dev, tally)
-    log(f"  phase 19 took {time.perf_counter() - t0:.1f}s; parts "
-        f"qwen {lm_s['qwen_s']:.1f}s, kNN-LM {lm_s['store_s']:.1f}s, other "
-        f"architectures {lm_s['archs_s']:.1f}s")
-    t0 = time.perf_counter()
-    log("phase 20: training: Qwen3-0.6B at full width and depth, float32 "
-        "gradients card vs CPU, the nine other architectures, a checkpoint "
-        "restart of SmolLM-135M, the kNN-LM example")
+    clock.stop(f"; parts qwen {lm_s['qwen_s']:.1f}s, kNN-LM "
+               f"{lm_s['store_s']:.1f}s, other architectures "
+               f"{lm_s['archs_s']:.1f}s")
+    clock.start(20, "training: Qwen3-0.6B at full width and depth, float32 "
+                "gradients card vs CPU, the nine other architectures, a "
+                "checkpoint restart of SmolLM-135M, the kNN-LM example")
     train_s = phase_train(dev, tally)
-    log(f"  phase 20 took {time.perf_counter() - t0:.1f}s; parts "
-        + ", ".join(f"{k} {v:.1f}s" for k, v in train_s["seconds"].items()))
-    t0 = time.perf_counter()
-    log("phase 21: parallelism and the dry-run: the sharded Qwen3-0.6B step "
-        "on a (2, 2) mesh, the pipeline, the compressed mean, the trueknn "
-        "cell on 256 and 512 positions, launch.dryrun on meta")
+    clock.stop("; parts " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in train_s["seconds"].items()))
+    clock.start(21, "parallelism and the dry-run: the sharded Qwen3-0.6B "
+                "step on a (2, 2) mesh, the pipeline, the compressed mean, "
+                "the trueknn cell on 256 and 512 positions, launch.dryrun on "
+                "meta")
     par = phase_parallel(dev, tally)
-    log(f"  phase 21 took {time.perf_counter() - t0:.1f}s; parts "
-        + ", ".join(f"{k} {v:.1f}s" for k, v in par["seconds"].items()))
-    log(f"  phases 9-21 launches {tally}")
+    clock.stop("; parts " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in par["seconds"].items()))
+    log(f"  phases 9-22 launches {tally}")
+    slow = sorted(clock.seconds.items(), key=lambda kv: -kv[1])[:5]
+    log("  phase seconds " + json.dumps(
+        {str(n): round(t, 1) for n, t in clock.seconds.items()})
+        + "; slowest " + ", ".join(f"{n}: {t:.1f}s" for n, t in slow))
     t_k, t_p, pw_b, _ = pw_t
     g_k, g_p, g_b = g_t
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -4075,7 +4254,8 @@ def main() -> int:
             "library_ms": None,
             "held_in": ["phase 2", "phase 5", "phase 9", "phase 10",
                         "phase 11", "phase 12", "phase 15", "phase 17",
-                        "phase 18", "phase 19", "phase 20", "phase 21"],
+                        "phase 18", "phase 19", "phase 20", "phase 21",
+                        "phase 22"],
             "shapes": [
                 shape_row(tag, *t[:3], splits=t[3][0], first_pass_ms=t[3][1],
                           merge_ms=t[3][2])
@@ -4108,7 +4288,7 @@ def main() -> int:
             "held_in": ["phase 3", "phase 7", "phase 8", "phase 9",
                         "phase 10", "phase 11", "phase 13", "phase 14",
                         "phase 16", "phase 17", "phase 18", "phase 19",
-                        "phase 20", "phase 21"],
+                        "phase 20", "phase 21", "phase 22"],
             "design_sweep": sweep,
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),

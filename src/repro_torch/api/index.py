@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import abc
 import inspect
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -28,7 +28,13 @@ import torch
 from .._device import resolve_device
 from ..core.result import KNNResult, RangeResult
 from .metrics import Metric
-from .query import HybridSpec, KnnSpec, QuerySpec, RangeSpec
+from .query import (
+    HybridSpec,
+    KnnSpec,
+    QuerySpec,
+    RangeSpec,
+    warn_deprecated_once,
+)
 from .registry import get_backend
 
 __all__ = ["NeighborIndex", "build_index"]
@@ -136,10 +142,55 @@ class NeighborIndex(abc.ABC):
 
     # -- the hot path -----------------------------------------------------
 
-    def query(self, queries, spec: QuerySpec, *, metric: str = "l2"):
+    def query(
+        self,
+        queries,
+        spec: Union[QuerySpec, int, None] = None,
+        *,
+        metric: str = "l2",
+        k: Optional[int] = None,
+        radius: Optional[float] = None,
+        stop_radius: Optional[float] = None,
+    ):
         """Answer ``spec`` over ``queries`` ((Q, d), or None to let the
         dataset query itself with self-exclusion).  Returns ``KNNResult``
-        for knn/hybrid specs, ``RangeResult`` (ragged CSR) for range."""
+        for knn/hybrid specs, ``RangeResult`` (ragged CSR) for range.
+
+        Deprecated form: ``query(queries, k, radius=..., stop_radius=...)``
+        (an int where the spec goes, or the ``k=`` keyword) adapts to
+        ``KnnSpec(k, start_radius=radius, stop_radius=stop_radius)`` and
+        warns once per process.
+        """
+        if isinstance(spec, (int, np.integer)):
+            if k is not None:
+                raise TypeError("query() got k twice (positional and keyword)")
+            k, spec = int(spec), None
+        if spec is None:
+            if k is None:
+                raise TypeError(
+                    "query() needs a QuerySpec (e.g. KnnSpec(k=8)) — or the "
+                    "deprecated k=... form"
+                )
+            warn_deprecated_once(
+                "NeighborIndex.query:k",
+                "NeighborIndex.query(queries, k, radius=..., stop_radius=...)"
+                " is deprecated; pass a spec: query(queries, KnnSpec(k, "
+                "start_radius=..., stop_radius=...))",
+            )
+            spec = KnnSpec(
+                int(k), start_radius=radius, stop_radius=stop_radius
+            )
+        else:
+            if not isinstance(spec, QuerySpec):
+                raise TypeError(
+                    f"spec must be a QuerySpec (KnnSpec / RangeSpec / "
+                    f"HybridSpec), got {type(spec).__name__}"
+                )
+            if k is not None or radius is not None or stop_radius is not None:
+                raise TypeError(
+                    "pass either a QuerySpec or the legacy k/radius/"
+                    "stop_radius keywords, not both"
+                )
         from .plan import QueryPlan  # late import: plan imports index
 
         return QueryPlan(self, spec, metric, canonical_shapes=False)(queries)

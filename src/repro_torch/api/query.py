@@ -23,13 +23,18 @@ Specs are frozen dataclasses: hashable, printable, safe to reuse across
 batches and to ship between processes.  Metric selection is orthogonal —
 ``index.query(q, spec, metric="l1")`` — see ``repro_torch.api.metrics``.
 
-A host-side copy of ``repro.api.query`` (the specs only; the port has no
-deprecated call forms).
+This module also owns the once-per-process deprecation machinery for the
+deprecated call forms (``query(q, k=...)`` and the free-function shims
+``trueknn``, ``brute_knn``, ``fixed_radius_knn``).  A host-side copy of
+``repro.api.query``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
+import warnings
 from typing import ClassVar, Optional
 
 __all__ = [
@@ -38,6 +43,7 @@ __all__ = [
     "RangeSpec",
     "HybridSpec",
     "AllPairsSpec",
+    "warn_deprecated_once",
 ]
 
 
@@ -229,3 +235,64 @@ class AllPairsSpec(QuerySpec):
 
     def validate(self) -> None:
         pass
+
+
+# -- once-per-process deprecation registry ---------------------------------
+
+_WARNED: set = set()
+
+#: root of the ``repro_torch`` package; frames under it are library
+#: internals the warning must never be attributed to
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _caller_stacklevel() -> int:
+    """The ``warnings.warn`` stacklevel of the nearest frame *outside* the
+    ``repro_torch`` package.
+
+    A fixed stacklevel is only right for one call depth: the moment a
+    deprecated form is reached through another layer of the package (a
+    server batch, a companion view, a shim over a shim) the warning would
+    land on library internals.  Walking the stack out of the package pins
+    it on the migrating caller's code at every depth.  The separator after
+    the root keeps a sibling directory whose name starts with it (such as
+    ``repro_torch_x``) outside.  (From ``warnings.warn``'s point of view
+    level 1 is our caller's frame, hence the offset.)
+    """
+    # sys._getframe(1) is warn_deprecated_once's own frame — exactly what
+    # warnings.warn (called from there) numbers as stacklevel 1, so the
+    # counter below shares warnings.warn's numbering.
+    level = 1
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_filename.startswith(
+        _PKG_ROOT + os.sep
+    ):
+        f = f.f_back
+        level += 1
+    return level
+
+
+def warn_deprecated_once(
+    key: str, message: str, *, stacklevel: Optional[int] = None
+) -> None:
+    """Emit ``DeprecationWarning`` for ``key`` at most once per process,
+    attributed to the caller *outside* this package (so ``python -W
+    error::DeprecationWarning`` and log lines point at the code that needs
+    migrating, not at the shim).  Pass ``stacklevel`` only to override the
+    automatic stack walk.
+
+    Own registry (not ``warnings``' built-in "once") so the behavior is
+    independent of whatever filters the host application or pytest
+    installed.  Tests reset via ``_reset_deprecation_registry``.
+    """
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    if stacklevel is None:
+        stacklevel = _caller_stacklevel()
+    warnings.warn(message, DeprecationWarning, stacklevel=stacklevel)
+
+
+def _reset_deprecation_registry() -> None:
+    """Test hook: make the next ``warn_deprecated_once`` fire again."""
+    _WARNED.clear()

@@ -3,14 +3,17 @@ loop, the exact brute engine, the Alg. 2 sampler and the oracle radii, the
 spatial partitioner and the mesh-sharded engines (torch; the kernels they
 launch live in ``repro_torch.kernels`` and ``csrc/``).  The public search
 surface is ``repro_torch.api``; its entry points are re-exported here
-lazily, as ``repro.core`` does.  The reference's deprecated free-function
-shims (``trueknn``, ``brute_knn``, ``fixed_radius_knn``,
-``TrueKNNResult``) are not ported."""
+lazily, as ``repro.core`` does.  The historical free functions
+(``trueknn``, ``fixed_radius_knn``, ``brute_knn``, and the
+``TrueKNNResult`` alias) remain, as in the reference, deprecated shims
+that build a throwaway index per call (on the card unless ``device="cpu"``)
+— correct, but they re-pay structure construction on every invocation,
+which is exactly what the index API exists to amortize."""
 
-from .brute import brute_knn_engine
+from .brute import brute_knn, brute_knn_engine
 from .datasets import DATASETS, make_dataset
 from .distributed import DeviceMesh
-from .fixed_radius import fixed_radius_round
+from .fixed_radius import fixed_radius_knn, fixed_radius_round
 from .grid import Grid, build_grid
 from .partition import (
     Partition,
@@ -32,12 +35,15 @@ from .sampling import (
     percentile_knn_distance,
     sample_start_radius,
 )
+from .trueknn import TrueKNNResult, trueknn
 
 __all__ = [
+    "brute_knn",
     "brute_knn_engine",
     "DATASETS",
     "make_dataset",
     "DeviceMesh",
+    "fixed_radius_knn",
     "fixed_radius_round",
     "Grid",
     "build_grid",
@@ -55,6 +61,8 @@ __all__ = [
     "max_knn_distance",
     "percentile_knn_distance",
     "sample_start_radius",
+    "TrueKNNResult",
+    "trueknn",
     # lazily re-exported from repro_torch.api via __getattr__:
     "build_index",
     "NeighborIndex",

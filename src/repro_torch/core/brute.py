@@ -17,7 +17,7 @@ import torch
 
 from ..kernels.ops import as_f32, l2_normalize, sqrt32, topk_engine
 
-__all__ = ["brute_knn_engine"]
+__all__ = ["brute_knn", "brute_knn_engine"]
 
 
 def _brute_impl(points, queries, query_ids, *, k: int, metric: str,
@@ -95,3 +95,24 @@ def brute_knn_engine(
     else:
         d_out = d2  # l1 / linf: already raw metric distances
     return d_out, idx, n_tests
+
+
+def brute_knn(points, k, *, queries=None, chunk: int = 512, device="cuda"):
+    """Deprecated shim: exact kNN via the registry's "brute" backend.
+
+    Returns (dists (Q,k), idxs (Q,k), n_tests) — the historical tuple.
+    Prefer ``build_index(points, backend="brute").query(queries, KnnSpec(k))``
+    and hold the index across batches.  ``device`` is the index's:
+    ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
+    """
+    from ..api import KnnSpec, build_index
+    from ..api.query import warn_deprecated_once
+
+    warn_deprecated_once(
+        "repro_torch.core.brute.brute_knn",
+        "brute_knn() is deprecated; use build_index(points, backend='brute')"
+        ".query(queries, KnnSpec(k)) and hold the index across batches",
+    )
+    res = build_index(points, backend="brute", chunk=chunk,
+                      device=device).query(queries, KnnSpec(int(k)))
+    return res.dists, res.idxs, res.n_tests

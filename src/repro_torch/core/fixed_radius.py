@@ -51,9 +51,9 @@ from ..kernels.ops import as_f32
 from ..kernels.ref import merge_partial_topk
 from .grid import Grid, cell_coords_of, hash_coords, stencil_offsets
 
-__all__ = ["fixed_radius_round", "grid_round", "grid_round_plain",
-           "grid_round_split_plain", "cell_keys", "coarse_design",
-           "stencil_slots", "COARSE_MIN_SLOTS"]
+__all__ = ["fixed_radius_knn", "fixed_radius_round", "grid_round",
+           "grid_round_plain", "grid_round_split_plain", "cell_keys",
+           "coarse_design", "stencil_slots", "COARSE_MIN_SLOTS"]
 
 #: (rows, 3^d * cap) candidate block per step of the plain version
 _CAND_ELEMS = {"cpu": 1 << 21, "cuda": 1 << 25}
@@ -414,3 +414,29 @@ def fixed_radius_round(
     r2 = float(np.float32(radius) ** 2)
     grid_round(pts, grid, q, qid, r2, k, out=out, tests=tests, chunk=chunk)
     return (*out, int(tests.item()))
+
+
+def fixed_radius_knn(points, radius, k, *, queries=None, chunk: int = 2048,
+                     device="cuda"):
+    """Deprecated shim: paper Alg. 1 via the registry's "fixed_radius"
+    backend (self-excluded when queries are the dataset itself).  Builds a
+    throwaway index — and therefore a fresh grid — per call; hold a
+    ``build_index(points, backend="fixed_radius", radius=r)`` handle to
+    amortize the grid across batches.  ``device`` is the index's:
+    ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
+
+    Returns (dists (Q,k), idxs (Q,k), found (Q,), n_tests).
+    """
+    from ..api import HybridSpec, build_index
+    from ..api.query import warn_deprecated_once
+
+    warn_deprecated_once(
+        "repro_torch.core.fixed_radius.fixed_radius_knn",
+        "fixed_radius_knn() is deprecated; use build_index(points, "
+        "backend='fixed_radius').query(queries, HybridSpec(k, radius)) and "
+        "hold the index across batches",
+    )
+    res = build_index(
+        points, backend="fixed_radius", chunk=chunk, device=device
+    ).query(queries, HybridSpec(int(k), float(radius)))
+    return res.dists, res.idxs, res.found, res.n_tests

@@ -5,6 +5,7 @@ datastore (``repro_torch.core.knnlm``, carried across with
 (``repro_torch.launch.serve``), whose printed counts must equal the
 reference launcher's on the same flags (times are not compared)."""
 
+import ast
 import contextlib
 import io
 import json
@@ -68,14 +69,30 @@ def test_oracle_radii_search_a_tensor_on_its_own_device():
 
 
 def test_core_exports_match_the_reference():
-    shims = {"trueknn", "brute_knn", "fixed_radius_knn", "TrueKNNResult"}
-    want = set(ref_core.__all__) - shims
+    want = set(ref_core.__all__)
     assert want <= set(port_core.__all__)
     for name in want:
         assert getattr(port_core, name) is not None, name
     assert port_core.build_index is port_core.__getattr__("build_index")
+    assert port_core.TrueKNNResult is port_core.KNNResult
     with pytest.raises(AttributeError):
-        port_core.trueknn
+        port_core.no_such_name
+
+
+def test_launch_exports_match_the_reference():
+    import repro.launch as ref_launch
+    import repro_torch.launch as port_launch
+
+    assert port_launch.__all__ == ref_launch.__all__
+    for name in port_launch.__all__:
+        assert callable(getattr(port_launch, name)), name
+    # the package never imports dryrun itself (it is an entry module)
+    tree = ast.parse(Path(port_launch.__file__).read_text())
+    imported = [a.name for n in ast.walk(tree)
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in n.names] + [n.module or "" for n in ast.walk(tree)
+                                     if isinstance(n, ast.ImportFrom)]
+    assert not any("dryrun" in name for name in imported), imported
 
 
 # -- the kNN-LM datastore ----------------------------------------------------

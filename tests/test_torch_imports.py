@@ -131,6 +131,18 @@ mesh = DeviceMesh(["cpu"] * 2, ("data",))
 xs = {(i,): torch.full((3,), float(i + 1)) for i in range(2)}
 assert torch.allclose(compressed_psum_mean(xs, mesh, "data")[(0,)],
                       torch.full((3,), 1.5), rtol=0.05)
+import warnings
+import repro_torch.core.trueknn
+from repro_torch.core import TrueKNNResult, brute_knn, fixed_radius_knn, trueknn
+from repro_torch.launch import make_host_mesh, make_production_mesh
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    assert isinstance(trueknn(pts, 3, device="cpu"), TrueKNNResult)
+    assert brute_knn(pts, 3, queries=pts[:5], device="cpu")[0].shape == (5, 3)
+    assert len(fixed_radius_knn(pts, 0.5, 3, device="cpu")) == 4
+    assert build_index(pts, backend="brute", device="cpu").query(
+        pts[:5], 3).idxs.shape == (5, 3)
 loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 print("OK")
