@@ -47,6 +47,7 @@ from ...core.fused_loop import build_schedule, fused_search
 from ...core.grid import build_grid
 from ...core.result import KNNResult, RoundStats
 from ...core.sampling import sample_start_radius
+from ...core.spans import span
 from ...kernels.ops import sqrt32
 from ..index import NeighborIndex
 from ..metrics import Metric
@@ -142,6 +143,7 @@ class TrueKNNIndex(NeighborIndex):
         self._warm_r: Optional[float] = None  # resolved-radius EMA
         self._sampled_r: Optional[float] = None  # Alg. 2 result (per cloud)
         self._probe_cache: dict = {}  # grid table-sizing probe memo
+        self._build_s = 0.0  # host seconds of the _grid_for calls that built
 
         self._c = {
             "batches": 0,
@@ -174,12 +176,15 @@ class TrueKNNIndex(NeighborIndex):
     def _grid_for(self, r: float):
         """Grid with cell size >= r (exactness invariant), cached on the
         radius lattice.  Returns (grid, cache_hit)."""
+        t0 = time.perf_counter()
         if not self._cache_grids:
-            self._c["grid_builds"] += 1
-            return build_grid(
+            g = build_grid(
                 self._pts, r, device_points=self._pts_t,
                 probe_cache=self._probe_cache,
-            ), False
+            )
+            self._c["grid_builds"] += 1
+            self._build_s += time.perf_counter() - t0
+            return g, False
         j = min(self._lattice_j(r), self._j_cap)
         g = self._grids.pop(j, None)
         if g is not None:
@@ -199,6 +204,7 @@ class TrueKNNIndex(NeighborIndex):
         self._c["grid_builds"] += 1
         while len(self._grids) > self._max_cached_grids:
             self._grids.pop(next(iter(self._grids)))
+        self._build_s += time.perf_counter() - t0
         return g, False
 
     def _start_radius(self, radius: Optional[float],
@@ -227,9 +233,10 @@ class TrueKNNIndex(NeighborIndex):
         if shared is not None:
             return max(float(shared), 1e-12), "shared"
         if self._sampled_r is None:
-            self._sampled_r = sample_start_radius(
-                self._pts_t, seed=self._seed
-            )
+            with span("repro_torch.trueknn.start_radius"):
+                self._sampled_r = sample_start_radius(
+                    self._pts_t, seed=self._seed
+                )
         return self._sampled_r, "sampled"
 
     # -- the hot path ------------------------------------------------------
@@ -337,6 +344,7 @@ class TrueKNNIndex(NeighborIndex):
         ctx=None,
     ) -> KNNResult:
         t_call = time.perf_counter()
+        mark = self._marks()
         n = self.n_points
         if queries is None:
             q_all = self._pts
@@ -374,6 +382,7 @@ class TrueKNNIndex(NeighborIndex):
                 metric_name=metric_name, ctx=ctx, t_call=t_call,
             )
             if res is not None:
+                res.timings.update(self._since(mark))
                 return res
 
         out_d = np.full((q_total, k), np.inf, dtype=np.float32)
@@ -384,7 +393,6 @@ class TrueKNNIndex(NeighborIndex):
 
         rounds: list = []
         total_tests = 0
-        t_build = 0.0
         ridx = 0
         force_brute_tail = False
         clamp_r = 4.0 * self._extent
@@ -404,7 +412,6 @@ class TrueKNNIndex(NeighborIndex):
                     break
             t0 = time.perf_counter()
             grid, hit = self._grid_for(r)
-            t_build += 0.0 if hit else time.perf_counter() - t0
 
             m = alive.size
             if queries is None and m == q_total:
@@ -518,16 +525,31 @@ class TrueKNNIndex(NeighborIndex):
             rounds=rounds,
             timings={
                 "query_seconds": time.perf_counter() - t_call,
-                "grid_build_seconds": t_build,
                 "grid_builds": n_builds,
                 "grid_cache_hits": n_hits,
                 "start_radius_source": r_source,
                 "warm_start_radius": r0 if r_source == "warm" else None,
                 "resolved_radius_p50": p50,
+                **self._since(mark),
             },
             start_radius=r0,
             final_radius=rounds[-1].radius if rounds else r0,
         )
+
+    def _marks(self) -> tuple:
+        """(build seconds, probe passes, probe seconds) so far."""
+        c = self._probe_cache
+        return (self._build_s, int(c.get("_passes", 0)),
+                float(c.get("_seconds", 0.0)))
+
+    def _since(self, mark: tuple) -> dict:
+        """The grid builds' host seconds (the ``_grid_for`` calls that
+        built) and the sizing probes' passes and seconds since ``mark``, as
+        timings."""
+        now = self._marks()
+        return {"grid_build_seconds": now[0] - mark[0],
+                "grid_probe_passes": now[1] - mark[1],
+                "grid_probe_seconds": now[2] - mark[2]}
 
     def _update_warm(self, resolved_at: np.ndarray) -> Optional[float]:
         """Warm-start update: EMA of a low percentile of the radii at which
@@ -569,11 +591,10 @@ class TrueKNNIndex(NeighborIndex):
         those verbatim."""
         n = self.n_points
         q_total = q_all.shape[0]
-        t0 = time.perf_counter()
-        sched = build_schedule(
-            self, r0, stop_radius=stop_radius, cap_exact=cap_exact
-        )
-        t_build = time.perf_counter() - t0
+        with span("repro_torch.trueknn.schedule"):
+            sched = build_schedule(
+                self, r0, stop_radius=stop_radius, cap_exact=cap_exact
+            )
         if not sched.radii:
             return None
         q_in = q_all
@@ -587,96 +608,97 @@ class TrueKNNIndex(NeighborIndex):
         )
         self._c["dispatches"] += 1
 
-        out_d, out_i = fr.dists, fr.idxs
-        found_all = fr.found.astype(np.int64)
-        unres = fr.unresolved  # pre-tail mask
-        rr = fr.resolved_round
-        t_final = fr.n_executed
-        n_tail = int(unres.sum())
-        tail_ran = sched.tail_mode != "none" and n_tail > 0
-        if tail_ran:
-            # the device tail replaced unresolved rows with the exact
-            # unbounded oracle answer; the hybrid re-cut and the found
-            # recount are the same host-side post-filters the host loop
-            # applies to its brute tail
-            if cap_exact:
-                from ..planner import apply_radius_cut
+        with span("repro_torch.trueknn.finish"):
+            out_d, out_i = fr.dists, fr.idxs
+            found_all = fr.found.astype(np.int64)
+            unres = fr.unresolved  # pre-tail mask
+            rr = fr.resolved_round
+            t_final = fr.n_executed
+            n_tail = int(unres.sum())
+            tail_ran = sched.tail_mode != "none" and n_tail > 0
+            if tail_ran:
+                # the device tail replaced unresolved rows with the exact
+                # unbounded oracle answer; the hybrid re-cut and the found
+                # recount are the same host-side post-filters the host loop
+                # applies to its brute tail
+                if cap_exact:
+                    from ..planner import apply_radius_cut
 
-                bd, bi, bfound = apply_radius_cut(
-                    out_d[unres], out_i[unres], stop_radius, n
+                    bd, bi, bfound = apply_radius_cut(
+                        out_d[unres], out_i[unres], stop_radius, n
+                    )
+                    out_d[unres] = bd
+                    out_i[unres] = bi
+                    found_all[unres] = bfound
+                else:
+                    found_all[unres] = np.isfinite(out_d[unres]).sum(1)
+                self._c["brute_tail_queries"] += n_tail
+
+            radii = np.asarray(sched.radii, np.float64)
+            alive_forever = rr < 0
+            rounds = []
+            total_tests = 0
+            for t in range(t_final):
+                m = int(np.sum(alive_forever | (rr >= t)))
+                n_res = int(np.sum(rr == t))
+                tests_t = int(fr.tests[t])
+                g = sched.grids[t]
+                rounds.append(
+                    RoundStats(t, float(radii[t]), m, n_res, tests_t,
+                               g.res, g.cap, 0.0,
+                               cache_hit=sched.cache_hits[t])
                 )
-                out_d[unres] = bd
-                out_i[unres] = bi
-                found_all[unres] = bfound
-            else:
-                found_all[unres] = np.isfinite(out_d[unres]).sum(1)
-            self._c["brute_tail_queries"] += n_tail
+                total_tests += tests_t
+            if tail_ran:
+                btests = n_tail * n
+                rounds.append(
+                    RoundStats(t_final, float("inf"), n_tail, n_tail, btests,
+                               (), 0, 0.0)
+                )
+                total_tests += btests
 
-        radii = np.asarray(sched.radii, np.float64)
-        alive_forever = rr < 0
-        rounds = []
-        total_tests = 0
-        for t in range(t_final):
-            m = int(np.sum(alive_forever | (rr >= t)))
-            n_res = int(np.sum(rr == t))
-            tests_t = int(fr.tests[t])
-            g = sched.grids[t]
-            rounds.append(
-                RoundStats(t, float(radii[t]), m, n_res, tests_t,
-                           g.res, g.cap, 0.0,
-                           cache_hit=sched.cache_hits[t])
+            resolved_at = np.where(
+                rr >= 0, radii[np.clip(rr, 0, len(radii) - 1)], np.nan
             )
-            total_tests += tests_t
-        if tail_ran:
-            btests = n_tail * n
-            rounds.append(
-                RoundStats(t_final, float("inf"), n_tail, n_tail, btests,
-                           (), 0, 0.0)
+            p50 = self._update_warm(resolved_at)
+
+            n_builds = sum(
+                1 for rs in rounds
+                if np.isfinite(rs.radius) and not rs.cache_hit
             )
-            total_tests += btests
+            n_hits = sum(1 for rs in rounds if rs.cache_hit)
+            self._c["batches"] += 1
+            self._c["queries_served"] += q_total
+            self._c["rounds"] += len(rounds)
 
-        resolved_at = np.where(
-            rr >= 0, radii[np.clip(rr, 0, len(radii) - 1)], np.nan
-        )
-        p50 = self._update_warm(resolved_at)
+            if ctx is not None and getattr(ctx, "canonical_shapes", False):
+                ctx.record_bucket(
+                    ("fused", "hybrid" if cap_exact else "knn", k, fr.q_pad,
+                     sched.signature())
+                )
 
-        n_builds = sum(
-            1 for rs in rounds
-            if np.isfinite(rs.radius) and not rs.cache_hit
-        )
-        n_hits = sum(1 for rs in rounds if rs.cache_hit)
-        self._c["batches"] += 1
-        self._c["queries_served"] += q_total
-        self._c["rounds"] += len(rounds)
-
-        if ctx is not None and getattr(ctx, "canonical_shapes", False):
-            ctx.record_bucket(
-                ("fused", "hybrid" if cap_exact else "knn", k, fr.q_pad,
-                 sched.signature())
+            return KNNResult(
+                dists=out_d,
+                idxs=out_i,
+                n_tests=total_tests,
+                backend=self.backend_name,
+                metric=metric_name,
+                found=found_all,
+                rounds=rounds,
+                timings={
+                    "query_seconds": time.perf_counter() - t_call,
+                    "grid_builds": n_builds,
+                    "grid_cache_hits": n_hits,
+                    "start_radius_source": r_source,
+                    "warm_start_radius": r0 if r_source == "warm" else None,
+                    "plan": f"fused/rounds<={len(sched.radii)}",
+                    "rounds_launched": len(sched.radii),
+                    "fused_dispatches": 1,
+                    "resolved_radius_p50": p50,
+                },
+                start_radius=r0,
+                final_radius=rounds[-1].radius if rounds else r0,
             )
-
-        return KNNResult(
-            dists=out_d,
-            idxs=out_i,
-            n_tests=total_tests,
-            backend=self.backend_name,
-            metric=metric_name,
-            found=found_all,
-            rounds=rounds,
-            timings={
-                "query_seconds": time.perf_counter() - t_call,
-                "grid_build_seconds": t_build,
-                "grid_builds": n_builds,
-                "grid_cache_hits": n_hits,
-                "start_radius_source": r_source,
-                "warm_start_radius": r0 if r_source == "warm" else None,
-                "plan": f"fused/rounds<={len(sched.radii)}",
-                "fused_dispatches": 1,
-                "resolved_radius_p50": p50,
-            },
-            start_radius=r0,
-            final_radius=rounds[-1].radius if rounds else r0,
-        )
 
     def stats(self) -> dict:
         s = super().stats()
@@ -686,4 +708,6 @@ class TrueKNNIndex(NeighborIndex):
         s["fused"] = self._fused
         s["grid_probe_hits"] = int(self._probe_cache.get("_hits", 0))
         s["grid_probe_misses"] = int(self._probe_cache.get("_misses", 0))
+        s["grid_probe_passes"] = int(self._probe_cache.get("_passes", 0))
+        s["grid_probe_seconds"] = float(self._probe_cache.get("_seconds", 0.0))
         return s

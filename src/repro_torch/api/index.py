@@ -27,6 +27,7 @@ import torch
 
 from .._device import resolve_device
 from ..core.result import KNNResult, RangeResult
+from ..core.spans import span
 from .metrics import Metric
 from .query import (
     HybridSpec,
@@ -193,7 +194,9 @@ class NeighborIndex(abc.ABC):
                 )
         from .plan import QueryPlan  # late import: plan imports index
 
-        return QueryPlan(self, spec, metric, canonical_shapes=False)(queries)
+        with span("repro_torch.query"):
+            return QueryPlan(self, spec, metric,
+                             canonical_shapes=False)(queries)
 
     def prepare(self, spec: QuerySpec, *, metric: str = "l2",
                 canonical_shapes: bool = True):

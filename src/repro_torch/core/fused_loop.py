@@ -17,6 +17,9 @@ test counters and a per-round "executed" flag.  A round launched after
 every row has resolved does nothing, so ``n_executed`` (the sum of the
 flags) equals the reference's while-loop count.  The brute tail runs only
 on rows still unresolved.  The single host sync is the final fetch.
+
+Under a recording ``torch.profiler`` each phase is a span
+(``repro_torch.fused.upload``, ``.round`` a launch, ``.tail``, ``.fetch``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..kernels.ops import as_f32, sqrt32
 from .brute import _brute_impl
 from .fixed_radius import grid_round
 from .grid import _next_pow2
+from .spans import span
 
 __all__ = ["FusedSchedule", "FusedResult", "build_schedule", "fused_search"]
 
@@ -144,47 +148,51 @@ def fused_search(points, schedule: FusedSchedule, queries, query_ids,
     start resolved, as in the reference.
     """
     dev = points.device
-    q = as_f32(queries, dev)
-    qid = torch.as_tensor(query_ids, dtype=torch.int32, device=dev).contiguous()
-    q_total = q.shape[0]
-    n = schedule.grids[0].n_points
     n_sched = len(schedule.radii)
     k = int(k)
+    with span("repro_torch.fused.upload"):
+        q = as_f32(queries, dev)
+        qid = torch.as_tensor(query_ids, dtype=torch.int32,
+                              device=dev).contiguous()
+        q_total = q.shape[0]
+        n = schedule.grids[0].n_points
 
-    best_d2 = torch.full((q_total, k), math.inf, dtype=torch.float32,
-                         device=dev)
-    best_i = torch.full((q_total, k), n, dtype=torch.int32, device=dev)
-    found = torch.zeros((q_total,), dtype=torch.int32, device=dev)
-    unres = torch.isfinite(q[:, 0]).to(torch.uint8)
-    res_round = torch.full((q_total,), -1, dtype=torch.int32, device=dev)
-    tests = torch.zeros((n_sched,), dtype=torch.int64, device=dev)
-    executed = torch.zeros((n_sched,), dtype=torch.int32, device=dev)
-    # host numpy f32 square == device f32 square (same IEEE multiply)
-    r2s = np.asarray(schedule.radii, np.float32) ** 2
+        best_d2 = torch.full((q_total, k), math.inf, dtype=torch.float32,
+                             device=dev)
+        best_i = torch.full((q_total, k), n, dtype=torch.int32, device=dev)
+        found = torch.zeros((q_total,), dtype=torch.int32, device=dev)
+        unres = torch.isfinite(q[:, 0]).to(torch.uint8)
+        res_round = torch.full((q_total,), -1, dtype=torch.int32, device=dev)
+        tests = torch.zeros((n_sched,), dtype=torch.int64, device=dev)
+        executed = torch.zeros((n_sched,), dtype=torch.int32, device=dev)
+        # host numpy f32 square == device f32 square (same IEEE multiply)
+        r2s = np.asarray(schedule.radii, np.float32) ** 2
 
     for t, grid in enumerate(schedule.grids):
-        grid_round(
-            points, grid, q, qid, float(r2s[t]), k,
-            out=(best_d2, best_i, found), tests=tests[t:t + 1],
-            unres=unres, res_round=res_round, t=t,
-            executed=executed[t:t + 1], chunk=chunk,
-        )
+        with span("repro_torch.fused.round"):
+            grid_round(
+                points, grid, q, qid, float(r2s[t]), k,
+                out=(best_d2, best_i, found), tests=tests[t:t + 1],
+                unres=unres, res_round=res_round, t=t,
+                executed=executed[t:t + 1], chunk=chunk,
+            )
     if schedule.tail_mode != "none":
         # exact oracle for the rows the loop left unresolved (the mask is
         # only read), replaced wholesale as the host loop does; the
         # hybrid re-cut and the found recount are host-side post-filters
         # in both loops
-        _brute_impl(points, q, qid, k=k, metric="l2", row_mask=unres,
-                    out=(best_d2, best_i))
-    best_d = sqrt32(best_d2)
-
-    return FusedResult(
-        dists=best_d.cpu().numpy(),  # the one host sync
-        idxs=best_i.cpu().numpy(),
-        found=found.cpu().numpy(),
-        unresolved=unres.cpu().numpy().astype(bool),
-        resolved_round=res_round.cpu().numpy(),
-        tests=tests.cpu().numpy(),
-        n_executed=int(executed.sum().item()),
-        q_pad=_next_pow2(max(q_total, 1)),
-    )
+        with span("repro_torch.fused.tail"):
+            _brute_impl(points, q, qid, k=k, metric="l2", row_mask=unres,
+                        out=(best_d2, best_i))
+    with span("repro_torch.fused.fetch"):
+        best_d = sqrt32(best_d2)
+        return FusedResult(
+            dists=best_d.cpu().numpy(),  # the one host sync
+            idxs=best_i.cpu().numpy(),
+            found=found.cpu().numpy(),
+            unresolved=unres.cpu().numpy().astype(bool),
+            resolved_round=res_round.cpu().numpy(),
+            tests=tests.cpu().numpy(),
+            n_executed=int(executed.sum().item()),
+            q_pad=_next_pow2(max(q_total, 1)),
+        )

@@ -9,17 +9,21 @@ match filters hash collisions out of every candidate list.
 
 The table-sizing probe runs on the host in numpy and is the reference's
 code verbatim (probe cache and its hit/miss counters included), so both
-packages size every grid identically.  Binning is a counting sort in
-torch ops on the device of the points: a stable argsort, a bincount, a
-cumsum and a masked scatter.
+packages size every grid identically; the port's memo also counts the
+resolutions its probes tried and their host seconds.  Binning is a
+counting sort in torch ops on the device of the points: a stable argsort,
+a bincount, a cumsum and a masked scatter.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+
+from .spans import span
 
 __all__ = ["Grid", "GridCapError", "build_grid", "grid_shape",
            "stencil_offsets", "hash_coords"]
@@ -140,7 +144,11 @@ def _size_grid(pts, radius: float, *, max_bucket_elems: int,
                probe_cache: dict):
     """The reference's table-sizing probe: (table_size, cap, res, cell, lo)
     for the valid rows ``pts``, coarsening the resolution until the table
-    fits ``max_bucket_elems`` (not under a forced shape)."""
+    fits ``max_bucket_elems`` (not under a forced shape).  A probe that the
+    memo does not answer adds the resolutions it tried (one ``np.unique``
+    each) to ``probe_cache["_passes"]`` and its host seconds to
+    ``"_seconds"``."""
+    t0 = time.perf_counter()
     n_valid, d = pts.shape
     lo = pts.min(axis=0)
     hi = pts.max(axis=0)
@@ -162,7 +170,9 @@ def _size_grid(pts, radius: float, *, max_bucket_elems: int,
         res = np.asarray(res_t, np.int64)
         cell = (extent / res).astype(np.float32)
         return table_size, cap, res, cell, lo
+    passes = 0
     while True:
+        passes += 1
         cell = (extent / res).astype(np.float32)
         coords = np.clip(
             np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
@@ -194,6 +204,10 @@ def _size_grid(pts, radius: float, *, max_bucket_elems: int,
     if use_cache:
         probe_cache["_misses"] = probe_cache.get("_misses", 0) + 1
         probe_cache[probe_key] = (table_size, cap, tuple(int(r) for r in res))
+    if probe_cache is not None:
+        probe_cache["_passes"] = probe_cache.get("_passes", 0) + passes
+        probe_cache["_seconds"] = (probe_cache.get("_seconds", 0.0)
+                                   + time.perf_counter() - t0)
     return table_size, cap, res, cell, lo
 
 
@@ -230,39 +244,44 @@ def build_grid(
     CPU when None).  ``n_valid``: rows beyond it are padding, excluded from
     the index.  ``probe_cache``: optional per-cloud memo of the sizing
     probe, keyed by (n_valid, initial res); ``"_hits"`` / ``"_misses"``
-    count lookups.  Ignored under ``force_table_size`` / ``force_cap``,
-    where a cap below what the points need raises ``GridCapError``.
+    count lookups, ``"_passes"`` / ``"_seconds"`` the probes' resolutions
+    and host time.  The memo is ignored under ``force_table_size`` /
+    ``force_cap``, where a cap below what the points need raises
+    ``GridCapError``.
     """
-    pts_all = np.asarray(points, dtype=np.float32)
-    n, d = pts_all.shape
-    n_valid = n_valid or n
-    table_size, cap, res, cell, lo = _size_grid(
-        pts_all[:n_valid], radius, max_bucket_elems=max_bucket_elems,
-        load_factor=load_factor, force_table_size=force_table_size,
-        force_cap=force_cap, probe_cache=probe_cache,
-    )
+    with span("repro_torch.grid.build"):
+        pts_all = np.asarray(points, dtype=np.float32)
+        n, d = pts_all.shape
+        n_valid = n_valid or n
+        with span("repro_torch.grid.probe"):
+            table_size, cap, res, cell, lo = _size_grid(
+                pts_all[:n_valid], radius, max_bucket_elems=max_bucket_elems,
+                load_factor=load_factor, force_table_size=force_table_size,
+                force_cap=force_cap, probe_cache=probe_cache,
+            )
 
-    res_t = tuple(int(r) for r in res)
-    dpts = (
-        torch.from_numpy(pts_all) if device_points is None else device_points
-    )
-    dev = dpts.device
-    origin = torch.from_numpy(lo).to(dev)
-    inv_cell = torch.from_numpy(np.asarray(1.0 / cell, np.float32)).to(dev)
-    res_arr = torch.tensor(res_t, dtype=torch.int32, device=dev)
-    buckets, point_cells = _bin_points(
-        dpts, origin, inv_cell, res_arr,
-        table_size=table_size, cap=cap, n_valid=n_valid,
-    )
-    return Grid(
-        buckets=buckets,
-        point_cells=point_cells,
-        origin=origin,
-        inv_cell=inv_cell,
-        res=res_t,
-        res_arr=res_arr,
-        table_size=table_size,
-        cap=cap,
-        n_points=n,
-        cell_size=cell,
-    )
+        res_t = tuple(int(r) for r in res)
+        dpts = (torch.from_numpy(pts_all) if device_points is None
+                else device_points)
+        dev = dpts.device
+        with span("repro_torch.grid.bin"):
+            origin = torch.from_numpy(lo).to(dev)
+            inv_cell = torch.from_numpy(
+                np.asarray(1.0 / cell, np.float32)).to(dev)
+            res_arr = torch.tensor(res_t, dtype=torch.int32, device=dev)
+            buckets, point_cells = _bin_points(
+                dpts, origin, inv_cell, res_arr,
+                table_size=table_size, cap=cap, n_valid=n_valid,
+            )
+        return Grid(
+            buckets=buckets,
+            point_cells=point_cells,
+            origin=origin,
+            inv_cell=inv_cell,
+            res=res_t,
+            res_arr=res_arr,
+            table_size=table_size,
+            cap=cap,
+            n_points=n,
+            cell_size=cell,
+        )
