@@ -7,12 +7,16 @@ cells hash (Teschner) into a table of O(#occupied) buckets of fixed
 capacity; each point's integer cell coords are kept, so an exact coord
 match filters hash collisions out of every candidate list.
 
-The table-sizing probe runs on the host in numpy and is the reference's
-code verbatim (probe cache and its hit/miss counters included), so both
-packages size every grid identically; the port's memo also counts the
-resolutions its probes tried and their host seconds.  Binning is a
-counting sort in torch ops on the device of the points: a stable argsort,
-a bincount, a cumsum and a masked scatter.
+The table-sizing probe runs in torch on the device of the points: each
+resolution it tries is a floor, a sort of the packed cell ids and a
+bincount of their hashes there, and only the occupied-cell count and the
+largest bucket come back to the host.  Its arithmetic is the reference's
+numpy probe, operation for operation in float32 and int64, so it yields
+the reference's (table_size, cap, res, cell, lo) and memo for every input
+(probe cache and its hit/miss counters included); the port's memo also
+counts the resolutions its probes tried and their wall seconds.  Binning
+is a counting sort in torch ops on the same device: a stable argsort, a
+bincount, a cumsum and a masked scatter.
 """
 
 from __future__ import annotations
@@ -142,16 +146,21 @@ class GridCapError(ValueError):
 def _size_grid(pts, radius: float, *, max_bucket_elems: int,
                load_factor: float, force_table_size: int, force_cap: int,
                probe_cache: dict):
-    """The reference's table-sizing probe: (table_size, cap, res, cell, lo)
-    for the valid rows ``pts``, coarsening the resolution until the table
-    fits ``max_bucket_elems`` (not under a forced shape).  A probe that the
-    memo does not answer adds the resolutions it tried (one ``np.unique``
-    each) to ``probe_cache["_passes"]`` and its host seconds to
-    ``"_seconds"``."""
+    """The reference's table-sizing probe, run in torch on the device of
+    the valid rows ``pts`` (a float32 tensor): (table_size, cap, res, cell,
+    lo), coarsening the resolution until the table fits
+    ``max_bucket_elems`` (not under a forced shape).  The bounding box
+    comes to the host as one read (min and max are exact); the resolutions
+    and cell sizes are the reference's numpy there.  Each resolution tried
+    is the reference's floor, clip, pack, distinct count and hash
+    occupancy on the device, where float32 division and int64 arithmetic
+    give numpy's bits, and brings two integers back.  A probe that the
+    memo does not answer adds the resolutions it tried to
+    ``probe_cache["_passes"]`` and its wall seconds (its reads from the
+    device included) to ``"_seconds"``."""
     t0 = time.perf_counter()
     n_valid, d = pts.shape
-    lo = pts.min(axis=0)
-    hi = pts.max(axis=0)
+    lo, hi = torch.stack(torch.aminmax(pts, dim=0)).cpu().numpy()
     extent = np.maximum(hi - lo, 1e-12)
 
     radius = float(max(radius, 1e-12))
@@ -170,23 +179,27 @@ def _size_grid(pts, radius: float, *, max_bucket_elems: int,
         res = np.asarray(res_t, np.int64)
         cell = (extent / res).astype(np.float32)
         return table_size, cap, res, cell, lo
+    dev = pts.device
+    shifted = pts - torch.from_numpy(lo).to(dev)
     passes = 0
     while True:
         passes += 1
         cell = (extent / res).astype(np.float32)
-        coords = np.clip(
-            np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
-        )
-        # pack to a unique id per occupied cell (host side, exact)
+        # float32 divide, floor, int64 cast, then the clip in int64: a
+        # non-finite coordinate casts to anything, but its axis has res 1
+        coords = torch.floor(shifted / torch.from_numpy(cell).to(dev))
+        coords = torch.minimum(coords.to(torch.int64).clamp_min(0),
+                               torch.from_numpy(res - 1).to(dev))
+        # pack to a unique id per occupied cell (exact in int64)
         packed = coords[:, 0]
         for a in range(1, d):
-            packed = packed * res[a] + coords[:, a]
-        n_occ = len(np.unique(packed))
+            packed = packed * int(res[a]) + coords[:, a]
+        n_occ = torch.unique(packed).numel()
         table_size = force_table_size or _next_pow2(
             max(int(n_occ / load_factor), 16)
         )
-        h = hash_coords(coords.astype(np.int64), table_size)
-        occ = np.bincount(h, minlength=table_size)
+        occ = torch.bincount(hash_coords(coords, table_size),
+                             minlength=table_size)
         needed_cap = _next_pow2(max(int(occ.max()), 1))
         if force_cap:
             # caller pre-computed a shared shape; it must be adequate —
@@ -215,10 +228,11 @@ def grid_shape(points, radius: float, *, n_valid: int = 0,
                max_bucket_elems: int = 1 << 25,
                load_factor: float = 0.5) -> tuple:
     """(table_size, cap) that ``build_grid`` would give these arguments,
-    from the host probe alone (no binning)."""
+    from the sizing probe alone (no binning), run on the CPU."""
     pts = np.asarray(points, dtype=np.float32)
+    pts = pts[: n_valid or pts.shape[0]]
     table_size, cap, _, _, _ = _size_grid(
-        pts[: n_valid or pts.shape[0]], radius,
+        torch.from_numpy(pts), radius,
         max_bucket_elems=max_bucket_elems, load_factor=load_factor,
         force_table_size=0, force_cap=0, probe_cache=None,
     )
@@ -239,13 +253,14 @@ def build_grid(
 ) -> Grid:
     """Build a hash grid whose effective cell size is >= ``radius`` per axis.
 
-    ``points`` is the host copy ((N, d) array) the sizing probe reads;
-    ``device_points`` the same cloud as a tensor, binned on its device (the
-    CPU when None).  ``n_valid``: rows beyond it are padding, excluded from
-    the index.  ``probe_cache``: optional per-cloud memo of the sizing
-    probe, keyed by (n_valid, initial res); ``"_hits"`` / ``"_misses"``
-    count lookups, ``"_passes"`` / ``"_seconds"`` the probes' resolutions
-    and host time.  The memo is ignored under ``force_table_size`` /
+    ``points`` is the host copy ((N, d) array); ``device_points`` the same
+    cloud as a tensor, probed and binned on its device (the CPU when
+    None).  ``n_valid``: rows beyond
+    it are padding, excluded from the index.  ``probe_cache``: optional
+    per-cloud memo of the sizing probe, keyed by (n_valid, initial res);
+    ``"_hits"`` / ``"_misses"`` count lookups, ``"_passes"`` /
+    ``"_seconds"`` the probes' resolutions and wall time.  The memo is
+    ignored under ``force_table_size`` /
     ``force_cap``, where a cap below what the points need raises
     ``GridCapError``.
     """
@@ -253,17 +268,18 @@ def build_grid(
         pts_all = np.asarray(points, dtype=np.float32)
         n, d = pts_all.shape
         n_valid = n_valid or n
-        with span("repro_torch.grid.probe"):
-            table_size, cap, res, cell, lo = _size_grid(
-                pts_all[:n_valid], radius, max_bucket_elems=max_bucket_elems,
-                load_factor=load_factor, force_table_size=force_table_size,
-                force_cap=force_cap, probe_cache=probe_cache,
-            )
-
-        res_t = tuple(int(r) for r in res)
         dpts = (torch.from_numpy(pts_all) if device_points is None
                 else device_points)
         dev = dpts.device
+        with span("repro_torch.grid.probe"):
+            table_size, cap, res, cell, lo = _size_grid(
+                dpts[:n_valid].to(torch.float32), radius,
+                max_bucket_elems=max_bucket_elems, load_factor=load_factor,
+                force_table_size=force_table_size, force_cap=force_cap,
+                probe_cache=probe_cache,
+            )
+
+        res_t = tuple(int(r) for r in res)
         with span("repro_torch.grid.bin"):
             origin = torch.from_numpy(lo).to(dev)
             inv_cell = torch.from_numpy(

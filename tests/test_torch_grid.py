@@ -24,7 +24,7 @@ from repro_torch.core.fixed_radius import (
     grid_round,
     grid_round_plain,
 )
-from repro_torch.core.grid import build_grid, hash_coords
+from repro_torch.core.grid import GridCapError, build_grid, hash_coords
 
 torch.set_num_threads(1)
 
@@ -99,6 +99,178 @@ def test_build_grid_arrays_and_probe_counters(cloud):
                   if key not in ("_passes", "_seconds")}
     assert tc["_hits"] == 1 and tc["_misses"] == 3
     assert tc["_passes"] >= tc["_misses"] and tc["_seconds"] > 0.0
+
+
+# -- the sizing probe on the points' device ----------------------------------
+
+
+def numpy_probe(pts, radius, *, force_table_size=0, force_cap=0,
+                probe_cache=None, max_bucket_elems=1 << 25, load_factor=0.5):
+    """The reference's table-sizing probe (the host half of
+    ``repro.core.grid.build_grid``, whose module imports JAX) in its own
+    numpy, with the port's count of passes in the memo:
+    (table_size, cap, res, cell, lo)."""
+    n_valid, d = pts.shape
+    lo = pts.min(axis=0)
+    hi = pts.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-12)
+    radius = float(max(radius, 1e-12))
+    res = np.clip(np.floor(extent / radius).astype(np.int64), 1, 1 << 20)
+    use_cache = (
+        probe_cache is not None and not force_table_size and not force_cap
+    )
+    probe_key = (n_valid, tuple(int(x) for x in res)) if use_cache else None
+    cached = probe_cache.get(probe_key) if use_cache else None
+    if cached is not None:
+        probe_cache["_hits"] = probe_cache.get("_hits", 0) + 1
+        table_size, cap, res_t = cached
+        res = np.asarray(res_t, np.int64)
+        return table_size, cap, res, (extent / res).astype(np.float32), lo
+    passes = 0
+    while True:
+        passes += 1
+        cell = (extent / res).astype(np.float32)
+        coords = np.clip(
+            np.floor((pts - lo) / cell).astype(np.int64), 0, res - 1
+        )
+        packed = coords[:, 0]
+        for a in range(1, d):
+            packed = packed * res[a] + coords[:, a]
+        n_occ = len(np.unique(packed))
+        table_size = force_table_size or 1 << max(
+            0, (max(int(n_occ / load_factor), 16) - 1).bit_length())
+        occ = np.bincount(hash_coords(coords, table_size),
+                          minlength=table_size)
+        needed_cap = 1 << max(0, (max(int(occ.max()), 1) - 1).bit_length())
+        if force_cap:
+            assert needed_cap <= force_cap, (needed_cap, force_cap)
+            cap = force_cap
+            break
+        cap = needed_cap
+        if table_size * cap <= max_bucket_elems or int(res.max()) == 1:
+            break
+        res = np.maximum(res // 2, 1)
+    if use_cache:
+        probe_cache["_misses"] = probe_cache.get("_misses", 0) + 1
+        probe_cache[probe_key] = (table_size, cap, tuple(int(r) for r in res))
+    if probe_cache is not None:
+        probe_cache["_passes"] = probe_cache.get("_passes", 0) + passes
+    return table_size, cap, res, cell, lo
+
+
+def _hold_probe(got, want):
+    """A grid's (table_size, cap, res, cell, lo) bit for bit against
+    ``numpy_probe``'s."""
+    table_size, cap, res, cell, lo = want
+    assert (got.table_size, got.cap) == (table_size, cap)
+    assert got.res == tuple(int(r) for r in res)
+    assert got.cell_size.tobytes() == cell.tobytes()
+    assert got.origin.cpu().numpy().tobytes() == lo.tobytes()
+
+
+def _probe_memos(pts, radii, device, **kw):
+    """Build at each radius on ``device`` with one memo, holding each grid's
+    probe against ``numpy_probe`` with another; returns both memos."""
+    dpts = torch.from_numpy(pts).to(device)
+    got_memo, want_memo = {}, {}
+    grids = []
+    for r in radii:
+        g = build_grid(pts, r, device_points=dpts, probe_cache=got_memo,
+                       **kw)
+        _hold_probe(g, numpy_probe(pts, r, probe_cache=want_memo, **kw))
+        grids.append(g)
+    assert got_memo.pop("_seconds") > 0.0
+    return got_memo, want_memo, grids
+
+
+DEVICES = ["cpu", pytest.param("cuda", marks=needs_card)]
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("cloud", CLOUDS)
+def test_probe_on_the_points_device_is_the_numpy_probe(cloud, device):
+    """The probe runs where the points live and sizes every grid as the
+    reference's numpy does, memo and counters included."""
+    pts = make_dataset(cloud, 1500, seed=3)
+    ext = float((pts.max(0) - pts.min(0)).max())
+    got, want, _ = _probe_memos(
+        pts, (ext / 300, ext / 40, ext / 5, ext / 40), device)
+    assert got == want and got["_hits"] == 1 and got["_misses"] == 3
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_probe_coarsens_lidar_2e20_to_the_collapsed_grid(device):
+    """A 2^20-point LiDAR map at the benchmark map's start radius: ten
+    coarsenings down to the (2, 3, 2) grid, as the reference's probe."""
+    pts = make_dataset("kitti", 1 << 20, seed=0)
+    got, want, (g,) = _probe_memos(pts, (0.165,), device)
+    assert got == want and got["_passes"] == 10
+    assert (g.table_size, g.cap, g.res) == (32, 524288, (2, 3, 2))
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_probe_divides_points_on_cell_edges_exactly(device):
+    """Points on the edges of 41/64-wide cells: a true float32 division puts
+    each in its own cell (513 cells, table 2048), where a multiply by the
+    rounded reciprocal drops 210 of them a cell (505 cells, table 1024)."""
+    pts = np.zeros((514, 3), np.float32)
+    pts[:, 0] = np.arange(514, dtype=np.float32) * np.float32(41 / 64)
+    got, want, (g,) = _probe_memos(pts, (41 / 64,), device)
+    assert got == want
+    assert (g.table_size, g.cap, g.res) == (2048, 2, (513, 1, 1))
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("bad", ["nan", "inf", "-inf", "all"])
+def test_probe_non_finite_axis_has_one_cell(bad, device):
+    """A non-finite coordinate makes its axis' extent inf or NaN, so the
+    reference gives that axis one cell and casts anything there to cell 0;
+    the probe follows it on either device."""
+    pts = make_dataset("kitti", 600, seed=4).copy()
+    if bad == "all":
+        pts[[5, 50, 500], 1] = [np.nan, np.inf, -np.inf]
+    else:
+        pts[[7, 70], 1] = float(bad)
+    got, want, grids = _probe_memos(pts, (0.5, 3.0, 0.5), device)
+    assert got == want and got["_misses"] == 2 and got["_hits"] == 1
+    assert all(g.res[1] == 1 for g in grids)
+    if device != "cpu":
+        return
+    # the reference's own build: what the probe decides (the binning's
+    # arrays are not the probe's)
+    for g, r in zip(grids, (0.5, 3.0)):
+        w, t = _grid_arrays(jax_build_grid(pts, r)), _grid_arrays(g)
+        for key in ("origin", "inv_cell", "res", "table_size", "cap",
+                    "cell_size"):
+            assert np.array_equal(np.asarray(t[key]), np.asarray(w[key]),
+                                  equal_nan=True), key
+
+
+@pytest.mark.parametrize("forced", ["below", "exact"])
+def test_probe_under_a_forced_shape(forced):
+    """Under a forced (table_size, cap) the memo is bypassed; a cap below
+    what the points need raises where the reference's assertion fails, and
+    an adequate one builds the reference's grid."""
+    pts = make_dataset("kitti", 600, seed=4)
+    with pytest.raises(AssertionError) as ref:
+        jax_build_grid(pts, 0.5, force_table_size=64, force_cap=1)
+    needed_cap = ref.value.args[0][0]
+    assert needed_cap > 1
+    memo = {}
+    if forced == "below":
+        with pytest.raises(GridCapError, match=f"cap {needed_cap} > forced"):
+            build_grid(pts, 0.5, force_table_size=64,
+                       force_cap=needed_cap // 2, probe_cache=memo)
+        assert memo == {}
+        return
+    g = build_grid(pts, 0.5, force_table_size=64, force_cap=needed_cap,
+                   probe_cache=memo)
+    want = jax_build_grid(pts, 0.5, force_table_size=64, force_cap=needed_cap)
+    got = _grid_arrays(g)
+    for key, w in _grid_arrays(want).items():
+        assert np.array_equal(np.asarray(got[key]), np.asarray(w)), key
+    assert memo["_passes"] == 1 and set(memo) == {"_passes", "_seconds"}
+    assert (g.table_size, g.cap) == (64, needed_cap)
 
 
 def _queries(pts, rng, m):
