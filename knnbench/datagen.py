@@ -3,7 +3,9 @@ the host.
 
 The three generators are frozen copies of ``repro_torch/core/datasets.py``
 (the KITTI-, 3DRoad- and Porto-like families), so that a change to the
-program cannot change what the benchmark feeds it.  The resident cloud
+program cannot change what the benchmark feeds it.  A cloud that they do
+not make is a file of its own, ``datasets/<name>.py`` with a ``make(n,
+seed)``, found by the name a configuration gives as its ``dataset``.  The resident cloud
 comes from its configuration's ``cloud_seed``; every other seed a
 generator gets is derived from the run's ``--seed`` and a name, so every
 scan and every sample of rows checked is an independent stream of one
@@ -13,8 +15,11 @@ seed.
 from __future__ import annotations
 
 import zlib
+from pathlib import Path
 
 import numpy as np
+
+from .spec import HERE, load_module
 
 __all__ = ["GENERATORS", "derive_seed", "make_points", "make_cloud"]
 
@@ -97,14 +102,22 @@ GENERATORS = {
 }
 
 
-def make_points(dataset: str, n: int, seed: int) -> np.ndarray:
-    if dataset not in GENERATORS:
-        raise KeyError(f"unknown dataset {dataset!r}; "
-                       f"options: {sorted(GENERATORS)}")
-    return GENERATORS[dataset](int(n), int(seed))
+def make_points(dataset: str, n: int, seed: int,
+                home: Path = HERE) -> np.ndarray:
+    """``n`` points of the cloud ``dataset`` from ``seed``: a generator of
+    ``GENERATORS``, else the ``make`` of ``<home>/datasets/<dataset>.py``
+    (``FileNotFoundError``, naming the files found, where neither is)."""
+    if dataset in GENERATORS:
+        return GENERATORS[dataset](int(n), int(seed))
+    try:
+        mod = load_module(home, "datasets", dataset)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"{e}; generators: {sorted(GENERATORS)}"
+                                ) from None
+    return mod.make(int(n), int(seed))
 
 
-def make_cloud(config: dict) -> np.ndarray:
+def make_cloud(config: dict, home: Path = HERE) -> np.ndarray:
     """The configuration's resident cloud.  It is drawn from the
     configuration's own ``cloud_seed``, not from the run's seed: the cloud
     is the deployment's data set, as a file would be, and the run's seed
@@ -113,4 +126,4 @@ def make_cloud(config: dict) -> np.ndarray:
     lattice, so a cloud drawn per run moved the rate up to 2x between
     seeds.)"""
     return make_points(config["dataset"], config["n_points"],
-                       derive_seed(config["cloud_seed"], "cloud"))
+                       derive_seed(config["cloud_seed"], "cloud"), home)

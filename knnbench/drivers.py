@@ -1,13 +1,14 @@
 """The drivers: one run of one cell, from set-up through the measured
 window to the comparison with the reference.
 
-A traffic file's ``kind`` picks the driver.  The one there is,
-``closed_batches``, is one client that sends a batch, waits for its
-answers on the host, and sends the next, back to back.  ``queries:
-"scan"`` sends fresh scans of ``scan_rows`` points from the
-configuration's generator, cycling through a pool of ``pool`` scans made
-at set-up; ``queries: "self"`` asks the whole cloud for its own
-neighbours (``query(None, ...)``).
+A traffic file's ``kind`` names its driver, ``kinds/<kind>.py``, found by
+that name (``spec.load_kind``); ``run_cell`` sets the run up and hands it
+over.  What every driver shares is here: the warm-up's sums
+(``_note_warm``), the numeric entries of a result's ``timings`` that a
+window batch keeps (``_numeric``), the index's grid builds
+(``_grid_builds``), the card's sync (``_sync``), the collector's state
+around the window (``_steady``, ``_release``) and the comparison with the
+reference (``_check``).
 
 The program is imported inside the functions, from ``repro_torch`` only.
 What the drivers record (``RunRecord``) is all that the metric readers
@@ -19,15 +20,16 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
+import numbers
 import time
 
 import numpy as np
 
 from . import compare, reference
-from .datagen import derive_seed, make_cloud, make_points
-from .trace import WINDOW_SPAN, span, traced
+from .datagen import make_cloud
+from .spec import load_kind
 
-__all__ = ["RunRecord", "KINDS", "run_cell"]
+__all__ = ["RunRecord", "run_cell"]
 
 
 @dataclasses.dataclass
@@ -46,10 +48,14 @@ class RunRecord:
     #: the rows of the window's batches
     rows_done: int = 0
     #: one entry a window batch: rows, rounds as (rows, radius) pairs,
-    #: n_tests
+    #: n_tests, start radius, and the numeric entries of the result's
+    #: ``timings`` (the program's counters of that call)
     batches: list = dataclasses.field(default_factory=list)
     warmup_grid_build_s: float = 0.0
     warmup_grid_builds: int = 0
+    #: the numeric entries of every warm-up call's ``timings``, summed key
+    #: by key
+    warmup_timings: dict = dataclasses.field(default_factory=dict)
     window_grid_builds: int = 0
     rows_checked: int = 0
     checks: dict = dataclasses.field(default_factory=dict)
@@ -68,10 +74,19 @@ def _grid_builds(index) -> int:
     return int(index.stats().get("grid_builds", 0))
 
 
+def _numeric(timings: dict) -> dict:
+    """A new dict of the numeric entries of a result's ``timings`` (flags,
+    names and None left out)."""
+    return {key: v for key, v in timings.items()
+            if isinstance(v, numbers.Real) and not isinstance(v, bool)}
+
+
 def _note_warm(rec: RunRecord, res) -> None:
     rec.warmup_grid_build_s += float(res.timings.get("grid_build_seconds",
                                                      0.0))
     rec.warmup_grid_builds += int(res.timings.get("grid_builds", 0))
+    for key, v in _numeric(res.timings).items():
+        rec.warmup_timings[key] = rec.warmup_timings.get(key, 0) + v
 
 
 def _steady() -> None:
@@ -118,94 +133,14 @@ def _check(rec: RunRecord, cloud, queries, port_d, port_i, exclude,
     rec.rows_checked = int(len(queries))
 
 
-def _closed_batches(rec, cell, make_index, cloud, seed, seconds, trace,
-                    device, out_trace):
-    from repro_torch import KnnSpec
-
-    tr = cell.traffic
-    spec = KnnSpec(rec.k)
-    if tr["queries"] == "scan":
-        rows = int(tr["scan_rows"])
-        pool = [make_points(cell.config["dataset"], rows,
-                            derive_seed(seed, "scan", i))
-                for i in range(int(tr["pool"]))]
-    elif tr["queries"] == "self":
-        rows = rec.n_points
-        pool = [None]
-    else:
-        raise ValueError(f"unknown closed-loop queries {tr['queries']!r}")
-    index = make_index()
-
-    # warm-up: the first batch starts from the sampled radius and builds
-    # the grids; then passes over the pool until one builds nothing
-    _note_warm(rec, index.query(pool[0], spec))
-    for _ in range(int(tr.get("warm_passes", 3))):
-        before = rec.warmup_grid_builds
-        for q in pool:
-            _note_warm(rec, index.query(q, spec))
-        if rec.warmup_grid_builds == before:
-            break
-    _sync(device)
-
-    per_batch = int(tr["check_rows_per_batch"])
-    check_rng = np.random.default_rng(derive_seed(seed, "check"))
-    picks = []  # (pool slot, rows, dists, idxs) of the rows to check
-    builds0 = _grid_builds(index)
-    _steady()
-    rec.setup_s = time.perf_counter() - rec.setup_s
-    with traced(trace, out_trace), span(WINDOW_SPAN):
-        t0 = time.perf_counter()
-        b = 0
-        while True:
-            q = pool[b % len(pool)]
-            with span("knnbench.batch"):
-                res = index.query(q, spec)
-            pick = check_rng.choice(rows, size=min(per_batch, rows),
-                                    replace=False)
-            picks.append((b % len(pool), pick, res.dists[pick],
-                          res.idxs[pick]))
-            rec.batches.append({
-                "rows": rows,
-                "rounds": [(r.n_queries, r.radius) for r in res.rounds],
-                "n_tests": int(res.n_tests),
-                "start_radius": res.start_radius,
-            })
-            b += 1
-            if time.perf_counter() - t0 >= seconds:
-                break
-        rec.window_s = time.perf_counter() - t0
-    rec.window_grid_builds = _grid_builds(index) - builds0
-    rec.rows_done = rows * len(rec.batches)
-    rec.attempted = rec.rows_done
-    del index, res
-    rec.memory_peak_bytes = _release(device)
-
-    cap = int(tr.get("check_rows_max", 1 << 15))
-    keep = np.arange(sum(len(p[1]) for p in picks))
-    if len(keep) > cap:
-        keep = np.sort(check_rng.choice(len(keep), size=cap, replace=False))
-    slot = np.concatenate([np.full(len(p[1]), p[0]) for p in picks])[keep]
-    row = np.concatenate([p[1] for p in picks])[keep]
-    port_d = np.concatenate([p[2] for p in picks])[keep]
-    port_i = np.concatenate([p[3] for p in picks])[keep]
-    if pool[0] is None:
-        queries, exclude = cloud[row], row
-    else:
-        queries = np.stack([pool[s][r] for s, r in zip(slot, row)])
-        exclude = None
-    _check(rec, cloud, queries, port_d, port_i, exclude, device)
-
-
-KINDS = {"closed_batches": _closed_batches}
-
-
 def run_cell(cell, seed: int, seconds: float, trace: bool, *,
              device: str = "cuda", t_start: float = None,
              sizes: dict = None) -> RunRecord:
     """One run of ``cell``.  ``t_start`` is the process's start on the
     ``time.perf_counter`` clock (set-up is counted from it).  ``sizes``
     overrides the configuration's ``n_points`` and the traffic's sizes, for
-    tests on the CPU; a measured run passes none."""
+    tests on the CPU (a cell's ``cpu_test``); a measured run passes
+    none."""
     from repro_torch import build_index
 
     cfg = dict(cell.config)
@@ -214,7 +149,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *,
         cell = dataclasses.replace(cell, config=cfg, traffic={
             **cell.traffic,
             **{k: v for k, v in sizes.items() if k in cell.traffic}})
-    kind = KINDS[cell.traffic["kind"]]
+    kind = load_kind(cell.traffic["kind"], cell.home)
     rec = RunRecord(cell=cell.name, seed=int(seed), seconds=float(seconds),
                     device=device, n_points=int(cfg["n_points"]),
                     dim=int(cfg["dim"]), k=int(cfg["k"]))
@@ -224,7 +159,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *,
         from repro_torch.kernels.build import extension
 
         extension()
-    cloud = make_cloud(cfg)
+    cloud = make_cloud(cfg, cell.home)
     if cloud.shape[1] != rec.dim:
         raise ValueError(f"{cfg['dataset']} makes {cloud.shape[1]}-D points,"
                          f" the configuration states {rec.dim}")

@@ -33,14 +33,14 @@ def control_rows(cell, seed: int):
     from knnbench.datagen import derive_seed, make_cloud, make_points
 
     cfg, tr = cell.config, cell.traffic
-    cloud = make_cloud(cfg)
+    cloud = make_cloud(cfg, cell.home)
     rng = np.random.default_rng(derive_seed(seed, "check"))
     if tr["queries"] == "self":
         rows = rng.choice(len(cloud), size=int(tr["check_rows_max"]),
                           replace=False)
         return cloud, cloud[rows], rows
     scan = make_points(cfg["dataset"], int(tr["scan_rows"]),
-                       derive_seed(seed, "scan", 0))
+                       derive_seed(seed, "scan", 0), cell.home)
     rows = rng.choice(len(scan), size=int(tr["check_rows_max"]),
                       replace=False)
     return cloud, scan[rows], None

@@ -61,7 +61,7 @@ def result_line(rec, cell, trace: bool, kind: str) -> dict:
     entries = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in entries:
-        value = load_reader(m["name"])(rec)
+        value = load_reader(m["name"], cell.home)(rec)
         # a reader that finds nothing returns None
         if value is not None and math.isfinite(value):
             metrics[m["name"]] = {"value": _num(value), "unit": m["unit"]}

@@ -4,30 +4,28 @@ Each test skips the harness's look for a card and drives the rest of a
 run (``drivers.run_cell`` on the CPU, where the program runs its plain
 versions) at a size a test holds, with one fault planted where the
 answers are produced: a neighbour altered, or half of the batch left
-out.  A sound run at the same size comes out correct."""
+out.  A sound run at the same size comes out correct.  The size is the
+``cpu_test`` groups of the cell's configuration and traffic files."""
 
 import numpy as np
 import pytest
 
 from knnbench import compare, drivers, spec
 
-SIZES = {
-    "kitti-scan2map": {"n_points": 6000, "scan_rows": 512, "pool": 2},
-    "kitti-scan2map-draw1": {"n_points": 6000, "scan_rows": 512, "pool": 2},
-    "porto-selfknn": {"n_points": 3000},
-}
 BENCH = spec.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def test_every_cell_has_a_test_size():
-    assert set(CELLS) <= set(SIZES)
+    for name in CELLS:
+        cell = spec.resolve_cell(BENCH, name)
+        assert int(cell.cpu_test["n_points"]) > cell.config["k"], name
 
 
 def _run(cell_name, seconds=0.6):
     cell = spec.resolve_cell(BENCH, cell_name)
     rec = drivers.run_cell(cell, 2**31 + 77, seconds, False, device="cpu",
-                           sizes=SIZES[cell_name])
+                           sizes=cell.cpu_test)
     return rec, compare.judge(rec.checks)
 
 

@@ -1,12 +1,13 @@
-"""BENCHMARK.json: every cell finds its configuration, traffic and metric
-files by name, and names, units and keys keep to the allowed forms."""
+"""BENCHMARK.json: every cell finds its configuration, traffic, traffic
+kind and metric files by name, and names, units and keys keep to the
+allowed forms."""
 
 import json
 import re
 
 import pytest
 
-from knnbench import drivers, spec
+from knnbench import spec
 
 BENCH = spec.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -26,7 +27,7 @@ def test_top_level_keys():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves_every_file_by_name(cell):
     c = spec.resolve_cell(BENCH, cell)
-    assert c.traffic["kind"] in drivers.KINDS
+    assert callable(spec.load_kind(c.traffic["kind"]))
     assert c.chips in (1, 4)
     for key in ("dataset", "n_points", "dim", "k", "backend"):
         assert key in c.config
@@ -42,6 +43,8 @@ def test_unknown_cell_and_metric_fail():
         spec.resolve_cell(BENCH, "no-such-cell")
     with pytest.raises(FileNotFoundError):
         spec.load_reader("no.such.metric")
+    with pytest.raises(FileNotFoundError, match="closed_batches"):
+        spec.load_kind("no_such_kind")
 
 
 def test_every_config_is_used_and_named_in_its_file():
