@@ -33,7 +33,9 @@ comes out:
    of the full cloud (the fine, one-thread-a-query design), 16384 seeded
    queries, and on the collapsed grid whose stencil walks the most slots
    and the coarsest (largest cap), 2048 of them, eight blocks of the
-   coarse, shared-memory design: d2, idx, found, n_tests bitwise; then
+   coarse, shared-memory design (the wrapper takes the sub-grid walk on
+   grids the sizing probe coarsened; each line names the design): d2, idx,
+   found, n_tests bitwise; then
    fused mode on the heaviest grid with a partly cleared ``unres`` mask,
    once with the rows as drawn and once out of cell order: also
    ``unres``, ``res_round`` and ``executed`` bitwise; then the fused
@@ -56,12 +58,19 @@ comes out:
    self-queries at k = 64, 128, 256, 1024, single-row and eight-row calls
    at k = 256 and Q = 512 at k = 300 (each also as first pass and merge
    apart, each pass with its bound); ``grid_round`` on round 0 of batch 1 and
-   one non-fused launch on the heaviest scheduled grid at full width,
-   whose n_tests must be exactly N * N when the grid has res <= 2 per axis;
-8. ``grid_round``'s two designs timed on every scheduled grid of kitti,
-   porto, road and uniform (the fused loop's rounds, and every row on
-   the grids between fine and collapsed), held bitwise equal to each
-   other, against the design the wrapper picks; each round's active rows,
+   one non-fused launch of the coarse design on the heaviest scheduled
+   grid at full width, whose n_tests must be exactly N * N when the grid
+   has res <= 2 per axis, and the sub-grid walk there, bitwise equal to it
+   and to the plain walk, with its own bound from the distances it
+   computed, and the design the wrapper takes there;
+8. ``grid_round``'s designs timed on every scheduled grid of kitti (at
+   k = 8 and at k = 50, the outlier filter's), porto, road and uniform
+   (the fused loop's rounds, and every row on the grids between fine and
+   collapsed; the sub-grid walk wherever the grid carries a sub-grid that
+   covers the radius, with the sub-grid's estimate of distances and tests
+   a row), held bitwise equal to each other, against the design the
+   wrapper picks (fused: the walk; every row: by the estimate), which
+   each line names; each round's active rows,
    and the tiles T and splits S the launch reports (``plan``), printed (S =
    1 on a coarse round over all 2^20 rows, S > 1 on one of at most 256
    rows, both checked), and every split round held
@@ -85,7 +94,9 @@ comes out:
    follows each backend's grid), the
    counted range's rounds timed at full width (k = 32, its second round's
    k and 1024; past 32 both designs, the coarse and the fine, equal
-   bitwise to each other and, on 64 rows, to the plain version),
+   bitwise to each other and, on 64 rows, to the plain version; at each k
+   the wrapper's design, the sub-grid walk there, equal bitwise to the
+   coarse design at full width and to the plain version on 64 rows),
    ``build_knn_graph`` and
    ``dbscan`` (the union-find's host seconds apart from the device part);
 12. ``build_index(kitti 2^22, backend="distributed")`` on a ``DeviceMesh``
@@ -583,6 +594,7 @@ def phase_grid(dev, kitti_np, rng):
         cell_keys,
         grid_round,
         grid_round_plain,
+        round_design,
     )
     from repro_torch.core.fused_loop import build_schedule
 
@@ -628,7 +640,8 @@ def phase_grid(dev, kitti_np, rng):
         if fin.any():
             worst = max(worst, float((a[0][fin] - b[0][fin]).abs().max()))
         log(f"  grid_round t={t} rows={m} r={sched.radii[t]:.6g} "
-            f"res={grid.res} cap={grid.cap} H={grid.table_size}: bitwise ok, "
+            f"res={grid.res} cap={grid.cap} H={grid.table_size} "
+            f"({round_design(grid, r2, k)}): bitwise ok, "
             f"n_tests={ta.item()}, found max {int(a[2].max())}")
 
     # fused mode on the heaviest grid: a partly cleared unres mask, once with
@@ -935,7 +948,14 @@ def phase_porto(dev, rng):
 def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
     import torch
 
-    from repro_torch.core.fixed_radius import grid_round, grid_round_plain
+    from repro_torch.core.fixed_radius import (
+        _launch,
+        _launch_walk,
+        grid_round,
+        grid_round_plain,
+        grid_round_subgrid_plain,
+        round_design,
+    )
     from repro_torch.kernels import build
     from repro_torch.kernels.ops import topk_engine
     from repro_torch.kernels.pairwise_topk import split_plan
@@ -1072,12 +1092,18 @@ def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
         f"version; kernel {g_k:.3f} ms, plain {g_p:.3f} ms, bound "
         f"{g_bound[0]:.4f} ms ({g_bound[1]})")
 
-    # the heaviest scheduled grid at full width, one non-fused launch (the
-    # plain version would take hours here: n_tests is held to its exact
-    # value instead, N * N on a grid of res <= 2 per axis)
+    # the heaviest scheduled grid at full width, one non-fused launch of the
+    # coarse design (the plain version would take hours here: n_tests is
+    # held to its exact value instead, N * N on a grid of res <= 2 per
+    # axis)
     hgrid, hrad, ht = heavy
     hr2 = float(np.float32(hrad) ** 2)
-    heavy_run = lambda: run(grid_round, out, tests, hgrid, hr2)  # noqa: E731
+
+    def coarse(pp, g, qq, qi, rr, k_, out, tests):
+        _launch(pp, g, qq, qi, rr, k_, True, out=out, tests=tests)
+
+    check(hgrid.sub is not None, "the heaviest grid carries no sub-grid")
+    heavy_run = lambda: run(coarse, out, tests, hgrid, hr2)  # noqa: E731
     first = median_ms(heavy_run, 1, sync, warmup=False)
     h_k = first if first > 2000.0 else median_ms(heavy_run, 3, sync,
                                                  warmup=False)
@@ -1088,12 +1114,48 @@ def phase_times(dev, index, b1, q, qid, thr, heavy, rng):
                + (n + 1) * d * 4 + n * 4 + n * kk * 8 + n * 4)
     h_bound = bound(h_bytes, h_tests * 3 * d)
     log(f"  grid_round heaviest t={ht} Q={n} r={hrad:.6g} res={hgrid.res} "
-        f"cap={hgrid.cap} H={hgrid.table_size} n_tests={h_tests}: kernel "
-        f"{h_k:.3f} ms (first launch {first:.3f} ms), plain not run, bound "
-        f"{h_bound[0]:.4f} ms ({h_bound[1]})")
+        f"cap={hgrid.cap} H={hgrid.table_size} n_tests={h_tests}: coarse "
+        f"design {h_k:.3f} ms (first launch {first:.3f} ms), plain not run, "
+        f"bound {h_bound[0]:.4f} ms ({h_bound[1]})")
+    # the wrapper's design there (an every-row round: the sub-grid's
+    # estimate decides), and the sub-grid walk held against the coarse
+    # design and the plain walk, with its own bound: the rows and the
+    # sub-grid's points read once, 3d operations a distance it computed
+    design = round_design(hgrid, hr2, kk)
+    out_w = tuple(torch.empty_like(t) for t in out)
+    tests_w = torch.zeros(1, dtype=torch.int64, device=dev)
+    ev = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def walk(pp, g, qq, qi, rr, k_, out, tests):
+        ev.zero_()
+        _launch_walk(g, qq, qi, rr, k_, out=out, tests=tests, evaluated=ev)
+
+    w_k = median_ms(lambda: run(walk, out_w, tests_w, hgrid, hr2), 3, sync)
+    w_eval = int(ev.item())
+    for x, y, name in zip(out_w, out, ("d2", "idx", "found")):
+        check(torch.equal(x, y), f"heaviest round walk: {name} differs")
+    check(int(tests_w.item()) == h_tests, "heaviest round walk: n_tests")
+    out_wp = tuple(torch.empty_like(t) for t in out)
+    tests_wp = torch.zeros(1, dtype=torch.int64, device=dev)
+    w_p = median_ms(lambda: run(grid_round_subgrid_plain, out_wp, tests_wp,
+                                hgrid, hr2), 1, sync, warmup=False)
+    for x, y, name in zip(out_wp, out, ("d2", "idx", "found")):
+        check(torch.equal(x, y), f"heaviest round plain walk: {name} differs")
+    check(int(tests_wp.item()) == h_tests, "heaviest round plain walk: "
+          "n_tests")
+    sub = hgrid.sub
+    w_bound = bound(n * d * 4 + sub.pts.numel() * 4 + n * d * 4 + n * kk * 8
+                    + n * 4, w_eval * 3 * d)
+    log(f"  grid_round heaviest t={ht}: the sub-grid walk {w_k:.3f} ms, "
+        f"plain walk {w_p:.3f} ms, bound {w_bound[0]:.4f} ms ({w_bound[1]}; "
+        f"{w_eval / n:.1f} distances a row), bitwise equal to the coarse "
+        f"design (sub-grid res {sub.res}); the wrapper takes {design} "
+        f"(estimate {sub.walk_per_row:.1f} distances, "
+        f"{sub.tests_per_row:.1f} tests a row)")
     return ((t_k, t_p, pw_bound, pw_split), (s_k, s_p, s_bound, s_split),
             (g_k, g_p, g_bound),
-            (h_k, None, h_bound, h_tests), wide_rows)
+            (h_k, None, h_bound, h_tests),
+            (w_k, w_p, w_bound, h_tests, w_eval), wide_rows)
 
 
 # -- phase 8: the two grid_round designs on every scheduled grid ------------
@@ -1143,6 +1205,31 @@ def _design_ms(pts, grid, r2, state, tiled):
             tuple(plan.tolist()) if tiled else None)
 
 
+def _walk_ms(pts, grid, r2, state):
+    """``_design_ms`` for the sub-grid walk (the row sort included): its
+    median time, the state it leaves, and the distances it computed."""
+    import torch
+
+    from repro_torch.core.fixed_radius import _launch_walk
+
+    n, k = state[0].shape
+    qid = torch.arange(n, dtype=torch.int32, device=pts.device)
+    times, st = [], None
+    for _ in range(3):
+        st = [x.clone() for x in state] + [
+            torch.zeros(1, dtype=torch.int64, device=pts.device),
+            torch.zeros(1, dtype=torch.int32, device=pts.device)]
+        ev = torch.zeros(1, dtype=torch.int64, device=pts.device)
+        fused = len(state) == 5
+        torch.cuda.synchronize()
+        times.append(_events_ms(lambda: _launch_walk(
+            grid, pts, qid, r2, k, out=tuple(st[:3]), tests=st[-2],
+            unres=st[3] if fused else None,
+            res_round=st[4] if fused else None, t=0,
+            executed=st[-1] if fused else None, evaluated=ev)))
+    return statistics.median(times), st, int(ev.item())
+
+
 def _round_once(pts, grid, r2, state, plain=False, **kw):
     """One launch of the coarse design (``kw`` to ``_launch``, such as a
     forced split) or, with ``plain``, the plain version, on fresh copies of
@@ -1170,23 +1257,30 @@ def _round_once(pts, grid, r2, state, plain=False, **kw):
 
 
 def phase_designs(dev, kitti):
-    """Both designs of ``grid_round`` on every scheduled grid of four
+    """The designs of ``grid_round`` on every scheduled grid of four
     clouds, self-queries at k = 8: each round of the fused loop as the
     main path runs it (on the rows still unresolved), and every row once
     on each grid shape whose cap lies between the fine grids' and the
     collapsed ones'.  The designs must agree bitwise; the fine design is not run
     where its tests would pass ``FINE_TEST_BUDGET`` (on a res (2, 2, 2)
-    grid of 2^20 points it takes about 20 s).  ``kitti`` is phase 3's
-    (schedule, points).  Returns the totals for the kernels line."""
+    grid of 2^20 points it takes about 20 s), the sub-grid walk only on
+    the grids that carry a sub-grid.  Each line names the design the
+    wrapper takes (``round_design``).  ``kitti`` is phase 3's (schedule,
+    points).  Returns the totals for the kernels line."""
     import torch
 
     from repro_torch import build_index, make_dataset
-    from repro_torch.core.fixed_radius import coarse_design, stencil_slots
+    from repro_torch.core.fixed_radius import (
+        coarse_design,
+        round_design,
+        stencil_slots,
+    )
     from repro_torch.core.fused_loop import build_schedule
 
     tot = {"fused": [0.0] * 4, "all rows": [0.0] * 4}
-    for cloud, n in (("kitti", N_MAIN), ("porto", N_PORTO),
-                     ("road", N_MAIN), ("uniform", N_MAIN)):
+    for cloud, n, k in (("kitti", N_MAIN, 8), ("kitti", N_MAIN, 50),
+                        ("porto", N_PORTO, 8), ("road", N_MAIN, 8),
+                        ("uniform", N_MAIN, 8)):
         if cloud == "kitti":
             sched, pts = kitti
         else:
@@ -1195,7 +1289,6 @@ def phase_designs(dev, kitti):
             r0, _ = index._start_radius(None)
             index._set_anchor(r0)
             sched, pts = build_schedule(index, r0), index._pts_t
-        k = 8
         # fused_search's state: d2, idx, found, unres, res_round
         fused = [torch.full((n, k), math.inf, device=dev),
                  torch.full((n, k), n, dtype=torch.int32, device=dev),
@@ -1223,16 +1316,24 @@ def phase_designs(dev, kitti):
                     f_ms, f_st, _ = _design_ms(pts, grid, r2, state, False)
                     for x, y in zip(c_st, f_st):
                         check(torch.equal(x, y), f"designs differ: {cloud} "
-                              f"t={t} {mode}")
+                              f"k={k} t={t} {mode}")
                 pick = coarse_design(grid)
+                design = round_design(grid, r2, k, mode == "fused")
+                w_ms = None
+                if grid.sub is not None and r2 <= grid.sub.r2_cover:
+                    w_ms, w_st, w_eval = _walk_ms(pts, grid, r2, state)
+                    for x, y in zip(c_st, w_st):
+                        check(torch.equal(x, y), f"walk differs: {cloud} "
+                              f"k={k} t={t} {mode}")
                 # (T, S) as the coarse launch reports them: a round over all
                 # 2^20 rows fills the card unsplit; one on a few hundred
                 # rows is split
                 if pick and rows == N_MAIN:
-                    check(splits == 1, f"{cloud} t={t}: every-row round split")
+                    check(splits == 1, f"{cloud} k={k} t={t}: every-row round "
+                          f"split")
                 if pick and rows <= 256:
                     check(splits > 1,
-                          f"{cloud} t={t}: few-row round not split")
+                          f"{cloud} k={k} t={t}: few-row round not split")
                 held = ""
                 if splits > 1:
                     # the split round against the unsplit one (S forced to
@@ -1243,21 +1344,29 @@ def phase_designs(dev, kitti):
                                                     plain=True)
                     for name, ref in refs.items():
                         for x, y in zip(c_st, ref):
-                            check(torch.equal(x, y), f"{cloud} t={t} {mode}: "
-                                  f"the split round differs from {name}")
+                            check(torch.equal(x, y), f"{cloud} k={k} t={t} "
+                                  f"{mode}: the split round differs from "
+                                  f"{name}")
                     held = f" (bitwise equal to {' and '.join(refs)})"
                 if f_ms is not None:
                     acc = tot[mode]
-                    for j, v in enumerate((c_ms if pick else f_ms,
-                                           min(c_ms, f_ms), f_ms, c_ms)):
+                    picked = (w_ms if design == "walk"
+                              else c_ms if pick else f_ms)
+                    for j, v in enumerate((picked, min(c_ms, f_ms, picked),
+                                           f_ms, c_ms)):
                         acc[j] += v
                 fine = "not run" if f_ms is None else f"{f_ms:.3f} ms"
-                log(f"  {cloud} t={t} {mode}: rows={rows} res={grid.res} "
-                    f"cap={grid.cap} H={grid.table_size} "
+                walk = ("" if w_ms is None else
+                        f", walk {w_ms:.3f} ms (sub-grid res "
+                        f"{grid.sub.res}, {w_eval / rows:.1f} distances a "
+                        f"row, bitwise equal; estimate "
+                        f"{grid.sub.walk_per_row:.1f} distances, "
+                        f"{grid.sub.tests_per_row:.1f} tests a row)")
+                log(f"  {cloud} k={k} t={t} {mode}: rows={rows} "
+                    f"res={grid.res} cap={grid.cap} H={grid.table_size} "
                     f"slots={stencil_slots(grid):.6g} n_tests={n_tests}: "
                     f"coarse (T={tiles} S={splits}{held}) {c_ms:.3f} ms, "
-                    f"fine {fine}; the wrapper takes "
-                    f"{'coarse' if pick else 'fine'}")
+                    f"fine {fine}{walk}; the wrapper takes {design}")
                 if mode == "fused":
                     fused = c_st[:5]
         del sched, pts, fused
@@ -1473,7 +1582,12 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
     import torch
 
     from repro_torch import AllPairsSpec
-    from repro_torch.core.fixed_radius import _launch, grid_round_plain
+    from repro_torch.core.fixed_radius import (
+        _launch,
+        grid_round,
+        grid_round_plain,
+        round_design,
+    )
     from repro_torch.workloads import build_knn_graph, dbscan
 
     whole, wall, counts = counted(
@@ -1519,10 +1633,13 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
 
     # the counted range's rounds alone, at full width: its first round
     # (k = 32), its second (the next power of two of the fullest ball) and
-    # k = 1024, the largest register list; past k = 32 both designs (the
-    # wrapper's coarse one and the fine one, a warp a query), held bitwise
-    # equal to each other at full width and to the plain version on
-    # COUNTED_ROWS rows
+    # k = 1024, the largest register list; the coarse design and, past
+    # k = 32, the fine one (a warp a query), held bitwise equal to each
+    # other at full width and to the plain version on COUNTED_ROWS rows;
+    # then at each k the wrapper's design (on this coarsened grid the
+    # sub-grid's estimate picks it: the walk, with its bound from the
+    # distances it computed), held against the coarse design at full width
+    # and the plain version on COUNTED_ROWS rows
     pts = fr_index._pts_t
     n, d = pts.shape
     grid, _ = fr_index._grid_for(radius)
@@ -1585,6 +1702,44 @@ def phase_all_pairs(dev, tk_index, fr_index, b2, radius, tally):
                       f"{name} differ")
             log(f"  counted range round k={k}: both designs bitwise equal at "
                 f"full width")
+        design = round_design(grid, r2, k)
+        out = tuple(torch.empty_like(x) for x in outs["coarse"][:3])
+        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        ev = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def run(out=out, tests=tests):
+            tests.zero_()
+            ev.zero_()
+            grid_round(pts, grid, pts, qid, r2, k, out=out, tests=tests,
+                       evaluated=ev)
+
+        ms = median_ms(run, 3, torch.cuda.synchronize)
+        for x, y, name in zip((*out, tests), outs["coarse"], names):
+            check(torch.equal(x, y), f"counted range k={k} {design}: {name} "
+                  f"differs from the coarse design at full width")
+        sub = slice(0, COUNTED_ROWS)
+        qs, qi = pts[sub].contiguous(), qid[sub].contiguous()
+        o = tuple(torch.empty_like(x[sub]) for x in out)
+        tt = torch.zeros(1, dtype=torch.int64, device=dev)
+        grid_round_plain(pts, grid, qs, qi, r2, k, out=o, tests=tt)
+        for x, y, name in zip((*o, tt), (*(x[sub] for x in out), None),
+                              names):
+            check(y is None or torch.equal(x, y), f"counted range k={k} "
+                  f"{design}: {name} differs from the plain version")
+        n_eval = int(ev.item())
+        if design == "walk":
+            b = bound(n * d * 4 + grid.sub.pts.numel() * 4 + n * k * 8
+                      + n * 4, n_eval * 3 * d)
+        else:
+            b = bound(n * d * 4 + grid.table_size * grid.cap * 4
+                      + (n + 1) * d * 4 + n * 4 + n * k * 8 + n * 4,
+                      int(tests.item()) * 3 * d)
+        rounds.append((k, f"{design} (the wrapper's)", ms, b,
+                       int(tests.item())))
+        log(f"  counted range round k={k}: the wrapper's design, {design}, "
+            f"{ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}; {n_eval / n:.1f} "
+            f"distances a row), bitwise equal to the coarse design at full "
+            f"width and on rows 0-{COUNTED_ROWS - 1} to the plain version")
         del outs
         torch.cuda.empty_cache()
 
@@ -4156,7 +4311,7 @@ def main() -> int:
     clock.start(6, "porto 2^18, fused and host loop")
     phase_porto(dev, rng)
     clock.start(7, "kernel times at main-path shapes")
-    pw_t, samp_t, g_t, heavy_t, wide_rows = phase_times(
+    pw_t, samp_t, g_t, heavy_t, heavy_w, wide_rows = phase_times(
         dev, index, b1, q, qid, thr, heavy, rng)
     clock.start(8, "grid_round's two designs on every scheduled grid")
     sweep = phase_designs(dev, kitti_sched)
@@ -4278,7 +4433,15 @@ def main() -> int:
                        "grid_round_fine_warp_kernel (fine, k > 32)",
                        "grid_round_tiled_kernel (coarse, k <= 32)",
                        "grid_round_warp_kernel (coarse, k > 32)",
-                       "grid_round_merge_kernel (coarse, S > 1)"],
+                       "grid_round_merge_kernel (coarse, S > 1)",
+                       "grid_round_keys_kernel (coarse and walk: the rows' "
+                       "cell keys for their order)",
+                       "grid_round_walk_kernel (walk, k <= 32: a thread a "
+                       "row)",
+                       "grid_round_walk_warp_kernel (walk: a warp a row at "
+                       "k > 32, and the rows the thread walk queued)",
+                       "grid_round_walk_block_kernel (walk: a block a row "
+                       "for the rows with the most candidates)"],
             "max_abs_err": grid_err,
             "ms": g_k,
             "plain_ms": g_p,
@@ -4293,8 +4456,13 @@ def main() -> int:
             "shapes": [
                 shape_row("round 0 of batch 1 Q=2^20 k=8", g_k, g_p, g_b),
                 shape_row(f"heaviest round t={heavy[2]} Q=2^20 k=8 "
-                          f"res={heavy[0].res} cap={heavy[0].cap}",
+                          f"res={heavy[0].res} cap={heavy[0].cap} coarse",
                           *heavy_t[:3], n_tests=heavy_t[3]),
+                shape_row(f"heaviest round t={heavy[2]} Q=2^20 k=8 "
+                          f"res={heavy[0].res} cap={heavy[0].cap} walk "
+                          f"(sub-grid res {heavy[0].sub.res})",
+                          *heavy_w[:3], n_tests=heavy_w[3],
+                          evaluated=heavy_w[4]),
             ] + few_rows + [
                 shape_row(f"counted range round Q=2^20 k={k} {design}", ms,
                           None, b, n_tests=nt)

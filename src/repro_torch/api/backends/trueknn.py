@@ -43,7 +43,7 @@ import numpy as np
 
 from ...core.brute import brute_knn_engine
 from ...core.fixed_radius import fixed_radius_round
-from ...core.fused_loop import build_schedule, fused_search
+from ...core.fused_loop import FusedGraphs, build_schedule, fused_search
 from ...core.grid import build_grid
 from ...core.result import KNNResult, RoundStats
 from ...core.sampling import sample_start_radius
@@ -118,6 +118,8 @@ class TrueKNNIndex(NeighborIndex):
             raise ValueError("radius growth factor must exceed 1")
         self._growth = float(growth)
         self._fused = bool(fused)
+        # the fused searches captured as CUDA graphs, replayed on the card
+        self._graphs = FusedGraphs()
         self._max_rounds = int(max_rounds)
         self._chunk = int(chunk)
         self._seed = int(seed)
@@ -604,7 +606,8 @@ class TrueKNNIndex(NeighborIndex):
             q_in = self._pts_t
             self._c["query_upload_skips"] += 1
         fr = fused_search(
-            self._pts_t, sched, q_in, qid_all, k, chunk=self._chunk
+            self._pts_t, sched, q_in, qid_all, k, chunk=self._chunk,
+            graphs=self._graphs,
         )
         self._c["dispatches"] += 1
 
@@ -657,6 +660,13 @@ class TrueKNNIndex(NeighborIndex):
                 )
                 total_tests += btests
 
+            # the distances the kernels computed: the walk's own count,
+            # one a test in the other designs and in the brute tail
+            d2_evaluated = int(np.where(fr.walked, fr.evaluated,
+                                        fr.tests).sum())
+            if tail_ran:
+                d2_evaluated += btests
+
             resolved_at = np.where(
                 rr >= 0, radii[np.clip(rr, 0, len(radii) - 1)], np.nan
             )
@@ -693,6 +703,8 @@ class TrueKNNIndex(NeighborIndex):
                     "warm_start_radius": r0 if r_source == "warm" else None,
                     "plan": f"fused/rounds<={len(sched.radii)}",
                     "rounds_launched": len(sched.radii),
+                    "subgrid_rounds": sum(fr.walked),
+                    "d2_evaluated": d2_evaluated,
                     "fused_dispatches": 1,
                     "resolved_radius_p50": p50,
                 },
@@ -704,6 +716,9 @@ class TrueKNNIndex(NeighborIndex):
         s = super().stats()
         s.update(self._c)
         s["cached_grids"] = len(self._grids)
+        s["fused_graph_captures"] = self._graphs.captures
+        s["fused_graph_replays"] = self._graphs.replays
+        s["fused_graph_failures"] = self._graphs.failures
         s["warm_radius"] = self._warm_r
         s["fused"] = self._fused
         s["grid_probe_hits"] = int(self._probe_cache.get("_hits", 0))

@@ -124,6 +124,43 @@
 //    split) is (d2, position).  Answers, found and n_tests (integer sums)
 //    are bitwise those of S = 1 for every S.
 //
+// * The sub-grid walk, a third design for the grids the wrapper's sizing
+//   probe coarsened (core/grid.py::SubGrid; the wrapper takes it where a
+//   grid carries one that covers the round's radius, in the fused loop
+//   always and elsewhere where the sub-grid's estimate of distances a row
+//   beats the reference's tests).  There a reference
+//   stencil holds up to every point of the cloud, while the answer lies
+//   within r.  The walk finds candidates through the cap-free sub-grid of
+//   cells of about the build radius: a row walks its 3^d sub-cells, each
+//   column's three cells on the last axis one contiguous range of float4
+//   (x, y, z, id) (the column's cells found through a dense column table
+//   and a binary search in the column), computes d2 as the reference's FMA
+//   chain, and keeps a candidate only if it is in radius, not the row
+//   itself, and in the reference's stencil (its reference cell within one
+//   of the query's on every axis).  The sub-grid holds every point such a
+//   round can keep (the bound is in SubGrid's docstring).  Candidates come
+//   in no position order, so the list compares the reference's order
+//   explicitly: a 64-bit key of (d2 bits, the stencil index of the
+//   candidate's reference cell, its index), which is (d2, position) since
+//   a bucket holds a cell's points in index order.  n_tests are the
+//   reference's: for each in-range stencil column the points of its
+//   (clamped) last-axis cells, one range of the reference's sorted cell
+//   keys, from cumulative counts made at build.  The work is the distances
+//   to the points of 3^d cells of about r (about 10^2 a row on the
+//   benchmark's clouds, against up to N in a reference stencil), and
+//   `evaluated` counts them.  The wrapper sorts the rows by sub-cell (the
+//   rows that run first; once a search, whose later walks keep the order),
+//   so a warp's rows share cells; a
+//   thread a row keeps k <= 32 keys in registers (KeyRegTopK), a warp a row
+//   above (KeyWarpTopK, its lanes over 32 consecutive candidates).  A row
+//   with more candidates than that walk takes (kThreadWalkMax,
+//   kWarpWalkMax) is queued on the device instead, and launches of their
+//   own walk each queued row with a warp (up to kWarpWalkMax) or a block
+//   of 16 warps, whose lists are merged in shared memory: the rows that
+//   resolve only at large radii hold 10^4 to 10^6 candidates, and one
+//   thread walking them alone held whole rounds up for 15-200 ms on the
+//   H100 (PERF.md).
+//
 // Fused mode (unres != null): rows whose unres flag is 0 are skipped and
 // left untouched; a row that runs REPLACES its outputs, and when it finds
 // >= k neighbours its res_round is set to t and its unres flag cleared.
@@ -142,11 +179,15 @@
 namespace {
 
 using repro_torch::kAllLanes;
+using repro_torch::KeyRegTopK;
+using repro_torch::KeyWarpTopK;
+using repro_torch::kKeyIndexBits;
 using repro_torch::MemTopK;
 using repro_torch::RegTopK;
 using repro_torch::RowWarpTopK;
 using repro_torch::warp_merge;
 using repro_torch::WarpTopK;
+using repro_torch::with_key_list;
 using repro_torch::with_list;
 
 constexpr int kThreads = 128;   // fine designs: 128 queries, or 4 warps
@@ -1044,6 +1085,433 @@ grid_round_warp_kernel(const Round a) {
   if (lane == 0 && my_tests != 0) atomicAdd(a.tests, my_tests);
 }
 
+// ------------------------------------------------------ the sub-grid walk
+
+// What the walk reads beside Round: the sub-grid and the reference's
+// per-cell counts (core/grid.py::SubGrid).
+struct Walk {
+  const float4* pts;      // (m,) x, y, z, index bits, sorted by sub-cell
+  const int* cell_start;  // (cells + 1,) each occupied sub-cell's first row
+  const int* cell_z;      // (cells,) its last-axis coordinate
+  const int* col_start;   // (cols + 1,) each column's first occupied cell
+  const float* origin;
+  const float* inv_cell;
+  const int* res;
+  const long long* ref_keys;  // (n_ref,) the reference's occupied cells
+  const long long* ref_cum;   // (n_ref + 1,) their points, summed
+  int n_ref;
+  unsigned long long* evaluated;  // distances computed, or null
+  // the rows left to a wider walk: queue 0 to the warp walk, 1 to the
+  // block walk, each (nq,) rows at queue_rows + q * nq, counted (from 0 at
+  // the launch) at queue_count[q]
+  int* queue_rows;
+  int* queue_count;
+  bool from_queue;  // the warp walk takes queue 0's rows, not positions
+};
+
+// Most candidates a row's thread walks (k <= 32) or its warp; a row with
+// more goes to the warp walk or the block walk, so that no round waits on
+// one thread or warp walking tens of thousands of points.  Rows on the
+// benchmark's clouds hold about 10^2 (PERF.md), a few up to 10^6.
+constexpr int kThreadWalkMax = 512;
+constexpr int kWarpWalkMax = 8192;
+constexpr int kBlockThreads = 512;  // the block walk: 16 warps a row
+// From this many rows that run, a thread walks rows up to kWarpWalkMax
+// itself: the card is full of threads, and the threads of one sub-cell
+// read the same candidates at once (an every-row round on kitti's map at
+// 1,850 candidates a row took 9.9 ms so and 17.3 ms with such rows queued).
+constexpr int kManyRows = 1 << 16;
+
+// The first position in [lo, hi) whose value is >= x (hi where none);
+// v is sorted there.
+template <class T>
+__device__ __forceinline__ int lower_bound(const T* v, int lo, int hi, T x) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (v[mid] < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A walk row: its coordinates, its reference cell cc in the reference's
+// res rs, and its sub-cell sc in the sub-grid's res ss (0, 0, 1 past d).
+struct WalkRow {
+  float qv[kMaxD];
+  int cc[kMaxD], rs[kMaxD], sc[kMaxD], ss[kMaxD];
+  bool finite;  // every coordinate finite: only such a row finds points
+};
+
+__device__ __forceinline__ void walk_row(const Round& a, const Walk& w,
+                                         int row, WalkRow& r) {
+  fine_query(a, row, r.qv, r.cc, r.rs);
+  r.finite = true;
+#pragma unroll
+  for (int x = 0; x < kMaxD; ++x) {
+    if (x < a.d) {
+      r.finite = r.finite && isfinite(r.qv[x]);
+      r.ss[x] = w.res[x];
+      r.sc[x] = cell_of(r.qv[x], w.origin[x], w.inv_cell[x], r.ss[x]);
+    } else {
+      r.sc[x] = 0;
+      r.ss[x] = 1;
+    }
+  }
+}
+
+// Column o (stencil_offsets(d - 1) order) of the cell c in a grid of res
+// rs: its linear key over the first d - 1 axes (the last of them
+// fastest), and whether it lies in the grid.
+__device__ __forceinline__ bool stencil_column(int o, int d,
+                                               const int (&c)[kMaxD],
+                                               const int (&rs)[kMaxD],
+                                               long long& col) {
+  int nb[kMaxD];
+  bool in = true;
+#pragma unroll
+  for (int x = kMaxD - 1; x >= 0; --x) {
+    if (x < d - 1) {
+      nb[x] = c[x] + o % 3 - 1;
+      o /= 3;
+      in = in && nb[x] >= 0 && nb[x] < rs[x];
+    }
+  }
+  col = 0;
+#pragma unroll
+  for (int x = 0; x < kMaxD; ++x) {
+    if (x < d - 1) col = col * rs[x] + nb[x];
+  }
+  return in;
+}
+
+// The reference's tests of a row: the points of its in-range stencil
+// cells.  In each in-range column the cells of the last axis's three
+// coordinates around the row's (clamped to the grid) are one range of
+// the sorted keys, whose points the cumulative counts give.
+__device__ __forceinline__ unsigned long long ref_tests(const Round& a,
+                                                        const Walk& w,
+                                                        const WalkRow& r,
+                                                        int n_col) {
+  const int last = a.d - 1;
+  const int zlo = max(r.cc[last] - 1, 0);
+  const int zhi = min(r.cc[last] + 1, r.rs[last] - 1);
+  unsigned long long t = 0;
+  if (zlo > zhi) return t;  // the row's cell lies outside the grid
+  for (int o = 0; o < n_col; ++o) {
+    long long col;
+    if (!stencil_column(o, a.d, r.cc, r.rs, col)) continue;
+    const long long base = col * r.rs[last];
+    const int lo = lower_bound(w.ref_keys, 0, w.n_ref, base + zlo);
+    const int hi = lower_bound(w.ref_keys, lo, w.n_ref, base + zhi + 1);
+    t += (unsigned long long)(w.ref_cum[hi] - w.ref_cum[lo]);
+  }
+  return t;
+}
+
+// Column o of the row's sub-stencil: [b, e) in w.pts, the points of the
+// column's occupied sub-cells at the row's last-axis coordinate +-1;
+// false where the column lies outside the sub-grid or holds none.
+__device__ __forceinline__ bool walk_column(const Round& a, const Walk& w,
+                                            const WalkRow& r, int o, int& b,
+                                            int& e) {
+  long long col;
+  if (!stencil_column(o, a.d, r.sc, r.ss, col)) return false;
+  const int c0 = w.col_start[col], c1 = w.col_start[col + 1];
+  const int z = r.sc[a.d - 1];
+  const int lo = lower_bound(w.cell_z, c0, c1, z - 1);
+  const int hi = lower_bound(w.cell_z, lo, c1, z + 2);
+  b = w.cell_start[lo];
+  e = w.cell_start[hi];
+  return b < e;
+}
+
+// The candidates of the row's sub-stencil (the walk's distances).
+__device__ __forceinline__ int walk_count(const Round& a, const Walk& w,
+                                          const WalkRow& r, int n_col) {
+  int total = 0;
+  for (int o = 0; o < n_col && r.finite; ++o) {
+    int b, e;
+    if (walk_column(a, w, r, o, b, e)) total += e - b;
+  }
+  return total;
+}
+
+// A row with more candidates than its walk takes (`most`): queued for the
+// warp walk or the block walk, which write its outputs.
+__device__ __forceinline__ bool leave_row(const Round& a, const Walk& w,
+                                          int row, int count, int most) {
+  if (count <= most) return false;
+  const int q = count <= kWarpWalkMax ? 0 : 1;
+  w.queue_rows[(size_t)q * a.nq + atomicAdd(w.queue_count + q, 1)] = row;
+  return true;
+}
+
+// A candidate the walk keeps: in radius, not the row itself, and in the
+// reference stencil of the row's cell (its cell in range and within one of
+// the row's on every axis); then its key, (d2 bits, stencil
+// index of its reference cell, index): the reference's (d2, position)
+// order, for d2 >= 0.
+__device__ __forceinline__ bool walk_keep(const Round& a, const WalkRow& r,
+                                          const float4 p, int self,
+                                          unsigned long long& key) {
+  float df = __fsub_rn(p.x, r.qv[0]);
+  float d2 = __fmul_rn(df, df);
+  if (a.d > 1) {
+    df = __fsub_rn(p.y, r.qv[1]);
+    d2 = __fmaf_rn(df, df, d2);
+  }
+  if (a.d > 2) {
+    df = __fsub_rn(p.z, r.qv[2]);
+    d2 = __fmaf_rn(df, df, d2);
+  }
+  if (!(d2 <= a.r2)) return false;
+  const int id = __float_as_int(p.w);
+  if (id == self) return false;
+  const int* pc = a.point_cells + (size_t)id * a.d;
+  int s = 0;
+#pragma unroll
+  for (int x = 0; x < kMaxD; ++x) {
+    if (x < a.d) {
+      const int o = pc[x] - r.cc[x];
+      if (o < -1 || o > 1 || pc[x] < 0 || pc[x] >= r.rs[x]) return false;
+      s = s * 3 + o + 1;
+    }
+  }
+  key = ((unsigned long long)__float_as_uint(d2) << 32) |
+        ((unsigned long long)s << kKeyIndexBits) | (unsigned)id;
+  return true;
+}
+
+// A warp's share of one column's candidates: lane l takes w.pts[i] for i =
+// i0, i0 + stride, ... below e (i0 = the range's start + the warp's place +
+// l), and the warp inserts those below its list's gate.
+template <class List>
+__device__ __forceinline__ void walk_range(const Round& a, const Walk& w,
+                                           const WalkRow& r, int self,
+                                           int i0, int e, int stride,
+                                           List& list, int& found,
+                                           int lane) {
+  unsigned long long gate = list.gate();
+  // every lane runs the same number of steps: a ballot each
+  for (int base = i0 - lane; base < e; base += stride) {
+    const int i = base + lane;
+    unsigned long long key = 0;
+    const bool keep = i < e && walk_keep(a, r, w.pts[i], self, key);
+    found += keep;
+    unsigned todo = __ballot_sync(kAllLanes, keep && key < gate);
+    while (todo != 0) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const unsigned long long kk = __shfl_sync(kAllLanes, key, src);
+      if (!(kk < gate)) continue;  // warp-uniform
+      list.insert(kk, lane);
+      gate = list.gate();
+    }
+  }
+}
+
+// k <= 32: a thread a row, its keys in registers.  Position pos serves row
+// perm[pos].  A row with more candidates than kThreadWalkMax (kWarpWalkMax
+// in a round of kManyRows rows or more) is queued for a wider walk.
+template <int KCAP>
+__global__ void __launch_bounds__(kThreads)
+grid_round_walk_kernel(const Round a, const Walk w) {
+  const int pos = blockIdx.x * kThreads + threadIdx.x;
+  const int row = pos < a.nq ? (int)a.perm[pos] : 0;
+  const bool active =
+      pos < a.nq && (a.unres == nullptr || a.unres[row] != 0);
+  unsigned long long my_tests = 0, my_eval = 0;
+  if (active) {
+    WalkRow r;
+    walk_row(a, w, row, r);
+    const int self = a.qid[row];
+    int n_col = 1;
+    for (int x = 1; x < a.d; ++x) n_col *= 3;
+    if (isfinite(r.qv[0])) my_tests = ref_tests(a, w, r, n_col);
+    const int count = walk_count(a, w, r, n_col);
+    const int most =
+        active_rows(a) >= kManyRows ? kWarpWalkMax : kThreadWalkMax;
+    if (!leave_row(a, w, row, count, most)) {
+      KeyRegTopK<KCAP> list;
+      list.init();
+      int found = 0;
+      my_eval = count;
+      for (int o = 0; o < n_col && r.finite; ++o) {
+        int b, e;
+        if (!walk_column(a, w, r, o, b, e)) continue;
+        for (int i = b; i < e; ++i) {
+          unsigned long long key;
+          if (!walk_keep(a, r, w.pts[i], self, key)) continue;
+          ++found;
+          if (key < list.worst) list.push(key, a.k);
+        }
+      }
+      list.store(a.out_d2 + (size_t)row * a.k, a.out_i + (size_t)row * a.k,
+                 a.k, a.n);
+      finish_row(a, row, found);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    my_tests += __shfl_down_sync(kAllLanes, my_tests, off);
+    my_eval += __shfl_down_sync(kAllLanes, my_eval, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (my_tests != 0) atomicAdd(a.tests, my_tests);
+    if (my_eval != 0 && w.evaluated != nullptr)
+      atomicAdd(w.evaluated, my_eval);
+  }
+}
+
+// One row of the warp walk (called by the whole warp).
+template <class List>
+__device__ __forceinline__ void walk_warp_row(const Round& a, const Walk& w,
+                                              int row, int lane) {
+  WalkRow r;
+  walk_row(a, w, row, r);
+  const int self = a.qid[row];
+  int n_col = 1;
+  for (int x = 1; x < a.d; ++x) n_col *= 3;
+  if (lane == 0 && !w.from_queue) {
+    const unsigned long long t =
+        isfinite(r.qv[0]) ? ref_tests(a, w, r, n_col) : 0;
+    if (t != 0) atomicAdd(a.tests, t);
+  }
+  const int count = walk_count(a, w, r, n_col);
+  bool left = false;
+  if (lane == 0) left = leave_row(a, w, row, count, kWarpWalkMax);
+  if (__shfl_sync(kAllLanes, left, 0)) return;  // the whole warp
+  List list;
+  list.init(a.k, lane);
+  int found = 0;
+  for (int o = 0; o < n_col && r.finite; ++o) {
+    int b, e;
+    if (!walk_column(a, w, r, o, b, e)) continue;
+    walk_range(a, w, r, self, b + lane, e, 32, list, found, lane);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    found += __shfl_xor_sync(kAllLanes, found, off);
+  list.store(a.out_d2 + (size_t)row * a.k, a.out_i + (size_t)row * a.k, a.k,
+             lane, a.n);
+  if (lane == 0) {
+    finish_row(a, row, found);
+    if (count != 0 && w.evaluated != nullptr) atomicAdd(w.evaluated, count);
+  }
+}
+
+// A warp a row: k > 32 over the positions (row perm[pos]), or, with
+// w.from_queue, over the rows the thread walk queued (then every warp
+// takes queued rows in turn, and their n_tests are counted already).  Its
+// lanes take 32 consecutive candidates of a column's range at a time, and
+// the warp inserts those below the gate.
+template <class List>
+__global__ void __launch_bounds__(kThreads)
+grid_round_walk_warp_kernel(const Round a, const Walk w) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kThreads / 32);
+  const int items = w.from_queue ? *w.queue_count : a.nq;
+  // warp-uniform: the whole warp takes an item or leaves
+  for (int item = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+       item < items; item += warps) {
+    const int row = w.from_queue ? w.queue_rows[item] : (int)a.perm[item];
+    if (a.unres != nullptr && a.unres[row] == 0) continue;
+    walk_warp_row<List>(a, w, row, lane);
+  }
+}
+
+// The rows the thread and warp walks left (more candidates than they
+// take): a block a row, over the queue (the launch's blocks fill the
+// card once and take the queued rows in turn).  Each of the block's warps
+// walks every 16th run of 32 candidates of each column with its own
+// list; then the warps' lists are merged into warp 0's, one at a time
+// through shared memory, and warp 0 writes the row.
+template <class List>
+__global__ void __launch_bounds__(kBlockThreads)
+grid_round_walk_block_kernel(const Round a, const Walk w) {
+  constexpr int kWarps = kBlockThreads / 32;
+  __shared__ unsigned long long s_keys[32 * List::kPerLane];
+  __shared__ int s_found;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int n_col = 1;
+  for (int x = 1; x < a.d; ++x) n_col *= 3;
+  const int queued = w.queue_count[1];
+  for (int item = blockIdx.x; item < queued; item += gridDim.x) {
+    const int row = w.queue_rows[(size_t)a.nq + item];
+    WalkRow r;
+    walk_row(a, w, row, r);  // a queued row is finite
+    const int self = a.qid[row];
+    if (threadIdx.x == 0) s_found = 0;
+    __syncthreads();
+    List list;
+    list.init(a.k, lane);
+    int found = 0, count = 0;
+    for (int o = 0; o < n_col; ++o) {
+      int b, e;
+      if (!walk_column(a, w, r, o, b, e)) continue;
+      count += e - b;
+      walk_range(a, w, r, self, b + warp * 32 + lane, e, kBlockThreads, list,
+                 found, lane);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      found += __shfl_xor_sync(kAllLanes, found, off);
+    if (lane == 0) atomicAdd(&s_found, found);
+    for (int src = 1; src < kWarps; ++src) {
+      __syncthreads();  // s_keys is free
+      if (warp == src) list.store_keys(s_keys, a.k, lane);
+      __syncthreads();
+      if (warp == 0) list.merge_keys(s_keys, a.k, lane);
+    }
+    __syncthreads();  // s_found is complete
+    if (warp == 0) {
+      list.store(a.out_d2 + (size_t)row * a.k, a.out_i + (size_t)row * a.k,
+                 a.k, lane, a.n);
+      if (lane == 0) {
+        finish_row(a, row, s_found);
+        if (w.evaluated != nullptr) atomicAdd(w.evaluated, count);
+      }
+    }
+    __syncthreads();  // s_found and s_keys are rewritten by the next row
+  }
+}
+
+// ------------------------------------------------------- the row order
+
+// The wrappers' row order in one launch: each query row's linear cell key
+// in a grid of (origin, inv_cell, res) (core/fixed_radius.py::cell_keys:
+// non-finite coordinates as 0, clamped, the last axis fastest), folded
+// into 31 bits (modulo 2^31 - 1, which keeps a cell's rows together and
+// the order of any grid of fewer cells), so that the sort takes four radix
+// passes, not eight; a row whose unres flag is 0 gets 2^31 - 1, so a
+// stable sort puts the rows that run first.  n_active, where not null,
+// counts the rows that run.
+__global__ void __launch_bounds__(kThreads)
+grid_round_keys_kernel(const float* q, int nq, int d, const float* origin,
+                       const float* inv_cell, const int* res,
+                       const unsigned char* unres, int* keys,
+                       int* n_active) {
+  constexpr long long kFold = 0x7fffffffLL;
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  bool run = false;
+  if (row < nq) {
+    long long key = 0;
+    for (int x = 0; x < d; ++x)
+      key = key * res[x] +
+            cell_of(q[(size_t)row * d + x], origin[x], inv_cell[x], res[x]);
+    run = unres == nullptr || unres[row] != 0;
+    keys[row] = (int)(run ? key % kFold : kFold);
+  }
+  // every thread of the warp reaches the vote
+  const unsigned votes = __ballot_sync(kAllLanes, run);
+  if (n_active != nullptr && (threadIdx.x & 31) == 0 && votes != 0)
+    atomicAdd(n_active, __popc(votes));
+}
+
 // ---------------------------------------------------------- the merge
 
 // After a split coarse launch: a warp a row that ran, over the active
@@ -1087,7 +1555,8 @@ typedef void (*RoundKernel)(const Round);
 
 // Blocks of `kernel` resident on the card at once: its occupancy times the
 // SMs, read once a kernel and device.
-int wave_of(RoundKernel kernel, int threads, int* cache) {
+template <class Kernel>
+int wave_of(Kernel kernel, int threads, int* cache) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
   if (cache[dev] == 0) {
@@ -1175,6 +1644,123 @@ extern "C" int grid_round_workspace_rows(int d, int k, int nq, int fused,
             per_block;
     return cudaSuccess;
   });
+}
+
+extern "C" int grid_round_keys_launch(const float* q, int nq, int d,
+                                      const float* origin,
+                                      const float* inv_cell, const int* res,
+                                      const unsigned char* unres, int* keys,
+                                      int* n_active, void* stream) {
+  if (nq <= 0) return cudaSuccess;
+  if (d < 1 || d > kMaxD) return cudaErrorInvalidValue;
+  grid_round_keys_kernel<<<(nq + kThreads - 1) / kThreads, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      q, nq, d, origin, inv_cell, res, unres, keys, n_active);
+  return cudaGetLastError();
+}
+
+extern "C" int grid_round_walk_launch(
+    const int* point_cells, const float* origin, const float* inv_cell,
+    const int* res, const float* q, const int* qid, const long long* perm,
+    const int* n_active, int nq, int n, int d, int k, float r2,
+    const float* sub_pts, const int* cell_start, const int* cell_z,
+    const int* col_start, const float* sub_origin, const float* sub_inv_cell,
+    const int* sub_res, const long long* ref_keys, const long long* ref_cum,
+    int n_ref, float* out_d2, int* out_i, int* found, unsigned char* unres,
+    int* res_round, int t, unsigned long long* tests,
+    unsigned long long* evaluated, int* executed, int* queue_rows,
+    int* queue_count, void* stream) {
+  if (nq <= 0) return cudaSuccess;
+  if (d < 1 || d > kMaxD || k <= 0 || k > repro_torch::kMaxWarpK ||
+      n < 0 || n > (1 << kKeyIndexBits) || perm == nullptr ||
+      reinterpret_cast<uintptr_t>(sub_pts) % 16 != 0 ||
+      queue_rows == nullptr || queue_count == nullptr)
+    return cudaErrorInvalidValue;
+  if ((unres == nullptr) != (res_round == nullptr) ||
+      (unres == nullptr) != (executed == nullptr))
+    return cudaErrorInvalidValue;
+  Round a{};
+  a.point_cells = point_cells;
+  a.origin = origin;
+  a.inv_cell = inv_cell;
+  a.res = res;
+  a.q = q;
+  a.qid = qid;
+  a.perm = perm;
+  a.n_active = n_active;
+  a.nq = nq;
+  a.n = n;
+  a.d = d;
+  a.k = k;
+  a.r2 = r2;
+  a.out_d2 = out_d2;
+  a.out_i = out_i;
+  a.found = found;
+  a.unres = unres;
+  a.res_round = res_round;
+  a.t = t;
+  a.tests = tests;
+  a.executed = executed;
+  const Walk w{reinterpret_cast<const float4*>(sub_pts),
+               cell_start,
+               cell_z,
+               col_start,
+               sub_origin,
+               sub_inv_cell,
+               sub_res,
+               ref_keys,
+               ref_cum,
+               n_ref,
+               evaluated,
+               queue_rows,
+               queue_count,
+               false};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(queue_count, 0, 2 * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  // the rows in walk order: a thread a row at k <= 32, a warp above
+  if (k <= 8) {
+    grid_round_walk_kernel<8>
+        <<<(nq + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, w);
+  } else if (k <= 32) {
+    grid_round_walk_kernel<32>
+        <<<(nq + kThreads - 1) / kThreads, kThreads, 0, s>>>(a, w);
+  } else {
+    with_key_list(k, [&](auto list) {
+      grid_round_walk_warp_kernel<decltype(list)>
+          <<<(nq + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
+              a, w);
+    });
+  }
+  // the queued rows: the warp walk over queue 0 (filled at k <= 32 only),
+  // then the block walk over queue 1, each one wave of blocks
+  with_key_list(k, [&](auto list) {
+    using List = decltype(list);
+    if ((err = cudaGetLastError()) != cudaSuccess) return;
+    if (k <= 32) {
+      static int cache[16];
+      const int wave =
+          wave_of(grid_round_walk_warp_kernel<List>, kThreads, cache);
+      if (wave <= 0) {
+        err = cudaErrorInvalidDevice;
+        return;
+      }
+      Walk wq = w;
+      wq.from_queue = true;
+      grid_round_walk_warp_kernel<List><<<wave, kThreads, 0, s>>>(a, wq);
+      if ((err = cudaGetLastError()) != cudaSuccess) return;
+    }
+    static int cache[16];
+    const int wave = wave_of(grid_round_walk_block_kernel<List>,
+                             kBlockThreads, cache);
+    if (wave <= 0) {
+      err = cudaErrorInvalidDevice;
+      return;
+    }
+    grid_round_walk_block_kernel<List><<<wave, kBlockThreads, 0, s>>>(a, w);
+    err = cudaGetLastError();
+  });
+  return err;
 }
 
 extern "C" int grid_round_launch(

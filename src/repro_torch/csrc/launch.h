@@ -67,6 +67,41 @@ int grid_round_launch(const float* pts, const int* buckets,
                       int* ws_i, int* ws_f, long long ws_rows, int* plan,
                       int splits, void* stream);
 
+// The wrappers' row order: keys (nq,) i32 gets each row of q (nq, d) f32
+// its linear cell key in the grid of origin / inv_cell (d,) f32, res (d,)
+// i32, modulo 2^31 - 1, and 2^31 - 1 where unres (nq,) u8 (or null) is 0;
+// n_active (one i32, zeroed) or null gets the count of the rows that run.
+int grid_round_keys_launch(const float* q, int nq, int d, const float* origin,
+                           const float* inv_cell, const int* res,
+                           const unsigned char* unres, int* keys,
+                           int* n_active, void* stream);
+
+// The sub-grid walk (a thread a row at k <= 32, a warp a row up to k =
+// 1024), same outputs and fused contract as grid_round_launch's designs:
+// point_cells (n + 1, d) i32, origin / inv_cell (d,) f32 and res (d,) i32
+// of the reference grid; perm (nq,) i64 the rows in walk order; n_active
+// (one i32: the rows that run) or null (all nq), as for the coarse design; the
+// sub-grid's sub_pts (m, 4) f32 (16-byte aligned; index bits in column 3),
+// cell_start (cells + 1,), cell_z (cells,), col_start (cols + 1,) i32,
+// sub_origin / sub_inv_cell (d,) f32, sub_res (d,) i32; the reference's
+// occupied cells' sorted keys ref_keys (n_ref,) i64 and cumulative counts
+// ref_cum (n_ref + 1,) i64.  evaluated, one u64 or null, is added the
+// distances computed.  queue_rows (2, nq) i32 and queue_count (2,) i32
+// (zeroed by the launch) are the two queues of the rows with many
+// candidates, walked by a warp or a block each (launches of their own).
+// n <= 2^27, 1 <= d <= 3.
+int grid_round_walk_launch(
+    const int* point_cells, const float* origin, const float* inv_cell,
+    const int* res, const float* q, const int* qid, const long long* perm,
+    const int* n_active, int nq, int n, int d, int k, float r2,
+    const float* sub_pts, const int* cell_start, const int* cell_z,
+    const int* col_start, const float* sub_origin, const float* sub_inv_cell,
+    const int* sub_res, const long long* ref_keys, const long long* ref_cum,
+    int n_ref, float* out_d2, int* out_i, int* found, unsigned char* unres,
+    int* res_round, int t, unsigned long long* tests,
+    unsigned long long* evaluated, int* executed, int* queue_rows,
+    int* queue_count, void* stream);
+
 // The workspace rows a coarse launch of nq rows at (d, k) needs on the
 // current device: fused != 0 when it takes an active count (n_active),
 // splits as for grid_round_launch; 0 when it runs unsplit.

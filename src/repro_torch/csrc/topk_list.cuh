@@ -18,6 +18,12 @@
 // moves the entries above its place 32 at a time, every access coalesced.
 // warp_merge combines the sorted partial lists of several splits with
 // either warp list.
+//
+// KeyRegTopK (a thread's) and KeyWarpTopK (a warp's) are the lists of
+// grid_round's sub-grid walk, whose candidates arrive in no useful order:
+// each entry is one 64-bit key whose order is the reference's (distance,
+// position) order (grid_round.cu builds it), compared explicitly, and a
+// candidate is offered only when its key is below the k-th.
 #pragma once
 
 #include <math_constants.h>
@@ -318,6 +324,153 @@ struct RowWarpTopK {
   __device__ __forceinline__ void store(float*, int*, int, int) const {}
 };
 
+// ---------------------------------------------------- the keyed lists
+
+// An empty slot's key, above every candidate's; it stores as (+inf,
+// sentinel).
+constexpr unsigned long long kEmptyKey = ~0ull;
+// The low bits of a key that hold the candidate's index.
+constexpr int kKeyIndexBits = 27;
+
+// A key's entry: its distance (the key's high 32 bits) and its index.
+__device__ __forceinline__ void store_key(unsigned long long key, float* od,
+                                          int* oi, int sentinel) {
+  if (key == kEmptyKey) {
+    *od = CUDART_INF_F;
+    *oi = sentinel;
+  } else {
+    *od = __uint_as_float((unsigned)(key >> 32));
+    *oi = (int)(key & ((1ull << kKeyIndexBits) - 1));
+  }
+}
+
+// One thread's list of k <= KCAP keys in registers, in increasing order
+// (as RegTopK).
+template <int KCAP>
+struct KeyRegTopK {
+  unsigned long long key[KCAP];
+  unsigned long long worst;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < KCAP; ++j) key[j] = kEmptyKey;
+    worst = kEmptyKey;
+  }
+
+  // Caller guarantees x < worst.
+  __device__ __forceinline__ void push(unsigned long long x, int k) {
+#pragma unroll
+    for (int j = KCAP - 1; j > 0; --j) {
+      if (key[j - 1] > x) {
+        key[j] = key[j - 1];
+      } else if (key[j] > x) {
+        key[j] = x;
+      }
+    }
+    if (key[0] > x) key[0] = x;
+#pragma unroll
+    for (int j = 0; j < KCAP; ++j) {
+      if (j == k - 1) worst = key[j];
+    }
+  }
+
+  __device__ __forceinline__ void store(float* od, int* oi, int k,
+                                        int sentinel) const {
+#pragma unroll
+    for (int j = 0; j < KCAP; ++j) {
+      if (j < k) store_key(key[j], od + j, oi + j, sentinel);
+    }
+  }
+};
+
+// WarpTopK's layout with keys: KPL keys a lane, right-aligned, the first
+// 32 * KPL - k slots holding 0, which no insertion passes (an entry goes
+// after every key <= its own).
+template <int KPL>
+struct KeyWarpTopK {
+  static constexpr int kPerLane = KPL;
+  unsigned long long key[KPL];
+
+  __device__ __forceinline__ static int pad(int k) { return 32 * KPL - k; }
+
+  __device__ __forceinline__ void init(int k, int lane) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j)
+      key[j] = lane * KPL + j < pad(k) ? 0ull : kEmptyKey;
+  }
+
+  // Places x after every key <= x and drops the last entry (as
+  // WarpTopK::insert).  Caller guarantees x < gate().
+  __device__ __forceinline__ void insert(unsigned long long x, int lane) {
+    if constexpr (KPL == 1) {
+      const int at = __popc(__ballot_sync(kAllLanes, key[0] <= x));
+      const unsigned long long up = __shfl_up_sync(kAllLanes, key[0], 1);
+      if (lane > at) {
+        key[0] = up;
+      } else if (lane == at) {
+        key[0] = x;
+      }
+      return;
+    }
+    unsigned long long below = __shfl_up_sync(kAllLanes, key[KPL - 1], 1);
+    if (lane == 0) below = 0ull;  // nothing below position 0
+#pragma unroll
+    for (int j = KPL - 1; j > 0; --j) {
+      const bool up = key[j - 1] > x;
+      const bool put = key[j] > x;
+      key[j] = up ? key[j - 1] : put ? x : key[j];
+    }
+    const bool up = below > x;
+    const bool put = key[0] > x;
+    key[0] = up ? below : put ? x : key[0];
+  }
+
+  // The k-th key, on every lane.
+  __device__ __forceinline__ unsigned long long gate() const {
+    return __shfl_sync(kAllLanes, key[KPL - 1], 31);
+  }
+
+  // The k keys, in order, to sk[0, k).
+  __device__ __forceinline__ void store_keys(unsigned long long* sk, int k,
+                                             int lane) const {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int e = lane * KPL + j - pad(k);
+      if (e >= 0) sk[e] = key[j];
+    }
+  }
+
+  // Inserts the keys of another sorted list of k at sk[0, k) that are
+  // below the gate, 32 at a time in order until one is not.
+  __device__ __forceinline__ void merge_keys(const unsigned long long* sk,
+                                             int k, int lane) {
+    unsigned long long g = gate();
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const unsigned long long v = c0 + lane < k ? sk[c0 + lane] : kEmptyKey;
+      unsigned take = __ballot_sync(kAllLanes, v < g);
+      const bool more = take == kAllLanes;
+      while (take != 0) {
+        const int src = __ffs(take) - 1;
+        take &= take - 1;
+        const unsigned long long x = __shfl_sync(kAllLanes, v, src);
+        if (!(x < g)) return;  // warp-uniform; no later key is below
+        insert(x, lane);
+        g = gate();
+      }
+      if (!more) return;
+    }
+  }
+
+  __device__ __forceinline__ void store(float* od, int* oi, int k, int lane,
+                                        int sentinel) const {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int e = lane * KPL + j - pad(k);
+      if (e >= 0) store_key(key[j], od + e, oi + e, sentinel);
+    }
+  }
+};
+
 // The largest WarpTopK: 32 entries a lane.
 constexpr int kMaxWarpK = 1024;
 
@@ -349,6 +502,25 @@ auto with_list(int k, F f) -> decltype(f(RowWarpTopK{})) {
       return f(WarpTopK<16>{});
     default:
       return f(WarpTopK<32>{});
+  }
+}
+
+// Calls f with an (empty) keyed warp list that keeps k <= kMaxWarpK keys.
+template <class F>
+void with_key_list(int k, F f) {
+  switch (kpl_of(k)) {
+    case 1:
+      return f(KeyWarpTopK<1>{});
+    case 2:
+      return f(KeyWarpTopK<2>{});
+    case 4:
+      return f(KeyWarpTopK<4>{});
+    case 8:
+      return f(KeyWarpTopK<8>{});
+    case 16:
+      return f(KeyWarpTopK<16>{});
+    default:
+      return f(KeyWarpTopK<32>{});
   }
 }
 

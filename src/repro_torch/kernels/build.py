@@ -15,6 +15,8 @@ where it launches its kernel, and nowhere else, so a run can show which
 kernels its path went through (``reset_launches`` / ``launch_counts``).
 ``WIDE_LAUNCHES`` counts apart each kernel's launches at k > 32, whose
 lists are kept by a warp with several entries a lane or in memory rows.
+A replayed CUDA graph adds the launches its capture counted
+(``launches_since``, ``add_launches``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ __all__ = [
     "load_sources",
     "count_launch",
     "launch_counts",
+    "launch_snapshot",
+    "launches_since",
+    "add_launches",
     "reset_launches",
 ]
 
@@ -52,6 +57,25 @@ def count_launch(name: str, wide: bool = False) -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def launch_snapshot() -> tuple:
+    """Both tallies as they stand, for ``launches_since``."""
+    return dict(LAUNCHES), dict(WIDE_LAUNCHES)
+
+
+def launches_since(snapshot: tuple) -> tuple:
+    """The launches counted since ``snapshot``, per tally and kernel."""
+    return tuple({name: now[name] - then[name] for name in now}
+                 for now, then in zip(launch_snapshot(), snapshot))
+
+
+def add_launches(delta: tuple, sign: int = 1) -> None:
+    """Add (``sign`` -1: take away) a ``launches_since`` delta: a replayed
+    CUDA graph launches what its capture counted."""
+    for counts, add in zip((LAUNCHES, WIDE_LAUNCHES), delta):
+        for name, n in add.items():
+            counts[name] += sign * n
 
 
 def reset_launches() -> None:
